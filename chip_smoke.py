@@ -11,11 +11,14 @@ Phases, each printing one line with its time:
    host coder's native library;
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, exactly equal, at the encoder's 1080p shapes plus a ragged
-   batch and 12-bit magnitudes, with both timed by CUDA events;
+   batch and 12-bit magnitudes, with both timed by CUDA events: satd8 at
+   the intra and subpel shapes, grid_search at the four full-pel rounds
+   that me_field runs on two frames of the clip, on a flat plane (every key
+   ties within a seed) and at a ragged n = 37;
 4. slice: a 16-frame 1080p 8-bit 4:2:0 encode at speed 6 (device analysis
-   on, device chain off) through rav1e_tpu_torch.Config(device="cuda");
-   every packet decodes to its reconstruction; both kernels were launched
-   by the encode;
+   on, device chain off) through rav1e_tpu_torch.Config() (device "cuda");
+   every packet decodes to its reconstruction through
+   rav1e_tpu_torch.decoder; both kernels were launched by the encode;
 5. analysis: the port's whole-frame analysis on the card against the same
    analysis on the CPU (plain versions) for a key, a forward-inter and a
    bidirectional frame: MV fields exactly equal, and every differing
@@ -26,6 +29,10 @@ Phases, each printing one line with its time:
 The line before the last is the kernels' JSON summary, preceded by
 nvidia-smi's name and power limit; the last line is
 {"ok": true, "device": {...}}.  Any failure exits non-zero without it.
+Each kernel's bound is the larger of its bytes (each input read once, each
+output written once) over the H100's 3.35 TB/s and its integer operations
+over 67 Tops (the card's non-tensor float32 rate, the nearest published
+peak), computed from this run's inputs.
 """
 
 from __future__ import annotations
@@ -40,6 +47,11 @@ import numpy as np
 WIDTH, HEIGHT, NFRAMES, QUANTIZER = 1920, 1080, 16, 120
 NEAR_TIE = 1e-5
 SEED = 42
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+PEAK_OPS_PER_S = 67e12  # H100 SXM non-tensor float32 rate
+# satd8, per 8x8 cell: 16 eight-point butterflies of 24 add/sub, 64 |.|,
+# 64 adds
+SATD_OPS_PER_CELL = 16 * 24 + 64 + 64
 
 
 def fail(msg: str) -> None:
@@ -82,10 +94,61 @@ def cuda_ms(fn, reps: int) -> float:
 # ---------------------------------------------------------------------------
 
 
-def kernel_phase(dev):
+def bound(nbytes: float, ops: float):
+    """(least ms the card could take, what bounds it)."""
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S
+    return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations")
+
+
+def grid_search_rounds(luma, ref, bd=8):
+    """The arguments of the four full-pel rounds that me_field runs on these
+    (H, W) int32 planes, in order."""
+    from rav1e_tpu_torch.device import me
+
+    calls = []
+    real = me._grid_search
+
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+
+    me._grid_search = record
+    try:
+        me.me_field(luma, ref, bd)
+    finally:
+        me._grid_search = real
+    return calls
+
+
+def grid_search_bound(args):
+    """Bytes and operations of one grid_search call on these inputs: the
+    source blocks, the block origins, the seeds, the reference samples that
+    the windows cover, each read once; the MVs written once."""
+    import torch
+
+    src, ref_pad, by, bx, seeds, blk, R, step, pad_off, clip = args
+    W = blk + 2 * R * step
+    ar = torch.arange(W, device=ref_pad.device)
+    covered = torch.zeros(ref_pad.shape, dtype=torch.bool,
+                          device=ref_pad.device)
+    for sd in seeds:
+        ty = by + sd[:, 0].clamp(-clip, clip) - R * step + pad_off
+        tx = bx + sd[:, 1].clamp(-clip, clip) - R * step + pad_off
+        covered[(ty[:, None, None] + ar[None, :, None]).long(),
+                (tx[:, None, None] + ar[None, None, :]).long()] = True
+    n = src.shape[0]
+    nbytes = 4 * (src.numel() + by.numel() + bx.numel()
+                  + sum(sd.numel() for sd in seeds) + int(covered.sum())
+                  + 2 * n)
+    ops = 3 * n * len(seeds) * (2 * R + 1) ** 2 * blk * blk
+    return nbytes, ops
+
+
+def kernel_phase(dev, luma0, luma1):
     import torch
 
     from rav1e_tpu_torch.device import kernels
+    from rav1e_tpu_torch.device.analysis import upload_source_luma
 
     g = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -106,16 +169,32 @@ def kernel_phase(dev):
         ("12-bit 4097x8x8", (4097, 8, 8), 4095),
         ("12-bit 1031x16x16", (1031, 16, 16), 4095),
     ]
-    # sad_grid cases: the pyramid levels of me_field at 1080p
-    sad_cases = [
-        ("L2 R3 s2 n510", 510, 3, 2),
-        ("L2 R1 s1 n510", 510, 1, 1),
-        ("L1 R2 s1 n2040", 2040, 2, 1),
-        ("L0 R2 s1 n8160", 8160, 2, 1),
-        ("ragged R2 s1 n37", 37, 2, 1),
-    ]
+    # grid_search cases: me_field's four rounds on two frames of the clip
+    # (1080p, 64-padded to 1088x1920), the same rounds on a flat plane with
+    # random seeds (every key ties within a seed), 12-bit samples at L0, and
+    # a ragged n = 37
+    cur = upload_source_luma(luma1, dev).to(torch.int32)
+    ref = upload_source_luma(luma0, dev).to(torch.int32)
+    rounds = grid_search_rounds(cur, ref)
+    names = ["L2 R3 s2", "L2 R1 s1", "L1 R2 s1", "L0 R2 s1"]
+    grid_cases = [(f"{nm} n{a[0].shape[0]}", a)
+                  for nm, a in zip(names, rounds)]
+    flat = torch.full_like(cur, 97)
+    for nm, a in zip(names, grid_search_rounds(flat, flat)):
+        clip = a[9]
+        seeds = [ints(-2 * clip, 2 * clip + 1, tuple(sd.shape))
+                 for sd in a[4]]
+        grid_cases.append((f"flat {nm}", (*a[:4], seeds, *a[5:])))
+    l0 = rounds[3]
+    grid_cases.append(("12-bit L0 R2 s1", (
+        ints(0, 4096, tuple(l0[0].shape)), ints(0, 4096, tuple(l0[1].shape)),
+        *l0[2:])))
+    for nm, a in (("L2 R3 s2", rounds[0]), ("L0 R2 s1", l0)):
+        grid_cases.append((f"ragged {nm} n37", (
+            a[0][:37], a[1], a[2][:37], a[3][:37], [sd[:37] for sd in a[4]],
+            *a[5:])))
+
     rows = []
-    summary = {}
     for label, shape, mag in satd_cases:
         d = ints(-mag, mag + 1, shape)
         got = kernels.satd8(d)
@@ -127,34 +206,34 @@ def kernel_phase(dev):
             fail(f"satd8 {label}: kernel != plain (max abs err {err})")
         ms = cuda_ms(lambda: kernels.satd8(d), 20)
         pms = cuda_ms(lambda: kernels.satd8_plain(d), 5)
-        rows.append(("satd8", label, err, ms, pms))
-    for label, n, R, step in sad_cases:
-        W = 16 + 2 * R * step
-        src = ints(0, 256, (n, 16, 16))
-        win = ints(0, 256, (n, W, W))
-        got = kernels.sad_grid(src, win, 16, R, step)
-        want = kernels.sad_grid_plain(src, win, 16, R, step)
+        cells = d.numel() // 64
+        b = bound(4 * (d.numel() + got.numel()), SATD_OPS_PER_CELL * cells)
+        rows.append(("satd8", label, err, ms, pms, *b))
+    for label, a in grid_cases:
+        got = kernels.grid_search(*a)
+        want = kernels.grid_search_plain(*a)
         torch.cuda.synchronize()
         err = (int((got - want).abs().max()) if got.shape == want.shape
                else float("inf"))
         if err != 0:
-            fail(f"sad_grid {label}: kernel != plain (max abs err {err})")
-        ms = cuda_ms(lambda: kernels.sad_grid(src, win, 16, R, step), 20)
-        pms = cuda_ms(lambda: kernels.sad_grid_plain(src, win, 16, R, step), 5)
-        rows.append(("sad_grid", label, err, ms, pms))
-    for name, label, err, ms, pms in rows:
-        print(f"  {name:8s} {label:24s} max_abs_err={err} kernel_ms={ms:.4f} "
-              f"plain_ms={pms:.4f}", flush=True)
-        s = summary.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0,
-                                      "plain_ms": 0.0})
+            fail(f"grid_search {label}: kernel != plain (max abs err {err})")
+        ms = cuda_ms(lambda: kernels.grid_search(*a), 20)
+        pms = cuda_ms(lambda: kernels.grid_search_plain(*a), 5)
+        rows.append(("grid_search", label, err, ms, pms,
+                     *bound(*grid_search_bound(a))))
+    summary = {}
+    for name, label, err, ms, pms, bms, by in rows:
+        print(f"  {name:11s} {label:24s} max_abs_err={err} kernel_ms={ms:.4f} "
+              f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}) "
+              f"share_of_bound={bms / ms:.3f}", flush=True)
+        s = summary.setdefault(name, {"max_abs_err": 0.0})
         s["max_abs_err"] = max(s["max_abs_err"], float(err))
-    # the JSON line's time: the largest main-path call of each kernel
+    # the JSON line's times: the largest main-path call of each kernel
     for name, label in (("satd8", "subpel 8160x49x16x16"),
-                        ("sad_grid", "L0 R2 s1 n8160")):
+                        ("grid_search", grid_cases[3][0])):
         r = next(r for r in rows if r[0] == name and r[1] == label)
-        summary[name]["ms"] = r[3]
-        summary[name]["plain_ms"] = r[4]
-        summary[name]["shape"] = label
+        summary[name].update(ms=r[3], plain_ms=r[4], bound_ms=r[5],
+                             bound_by=r[6], shape=label)
     return summary
 
 
@@ -190,16 +269,18 @@ def synth_clip(w, h, n, rng):
     return frames
 
 
-def slice_config(rav1e_tpu_torch, device, width=WIDTH, height=HEIGHT):
+def slice_config(rav1e_tpu_torch, device=None, width=WIDTH, height=HEIGHT):
+    """The slice's Config; no device means the port's default, the card."""
     ss = rav1e_tpu_torch.SpeedSettings.from_preset(6)
     ss.device_chain = False
+    kw = {} if device is None else {"device": device}
     return rav1e_tpu_torch.Config(
         enc=rav1e_tpu_torch.EncoderConfig(
             width=width, height=height, quantizer=QUANTIZER,
             low_latency=False, speed_settings=ss,
             min_key_frame_interval=0, max_key_frame_interval=9999,
         ),
-        device=device,
+        **kw,
     )
 
 
@@ -219,7 +300,7 @@ def encode(ctx, clip, rav1e_tpu_torch):
 
 
 def verify_decode(pkts):
-    from rav1e_tpu.decoder import decode_packet
+    from rav1e_tpu_torch.decoder import decode_packet
 
     state = None
     for i, p in enumerate(pkts):
@@ -241,7 +322,7 @@ def verify_decode(pkts):
 def analysis_phase(clip, dev):
     import torch
 
-    from rav1e_tpu import tables
+    from rav1e_tpu_torch import tables
     from rav1e_tpu_torch.device import analysis
 
     qi = QUANTIZER
@@ -324,29 +405,30 @@ def main() -> int:
 
     t = time.monotonic()
     _build.lib()
+    kernels_s = time.monotonic() - t
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print("  " + line.strip(), flush=True)
-    from rav1e_tpu import native
+    from rav1e_tpu_torch import native
 
     if native.get_lib() is None:
         fail("the host coder's native library did not build")
-    phase("build", t)
-
-    t = time.monotonic()
-    ksum = kernel_phase(dev)
-    phase("kernels", t, "kernel == plain at every shape")
+    phase("build", t, f"(kernels {kernels_s:.3f} s, then the host coder)")
 
     t = time.monotonic()
     rng = np.random.default_rng(SEED)
     clip = synth_clip(WIDTH, HEIGHT, NFRAMES, rng)
     phase("clip", t, f"{NFRAMES} frames {WIDTH}x{HEIGHT}")
 
-    from rav1e_tpu.utils import trace
+    t = time.monotonic()
+    ksum = kernel_phase(dev, clip[0][0], clip[1][0])
+    phase("kernels", t, "kernel == plain at every shape")
+
+    from rav1e_tpu_torch.utils import trace
 
     trace.trace_enable()
     trace.reset()
-    ctx = slice_config(rav1e_tpu_torch, dev).new_context()
+    ctx = slice_config(rav1e_tpu_torch).new_context()
     torch.cuda.synchronize()
     kernels.reset_launches()
     t = time.monotonic()
@@ -373,6 +455,8 @@ def main() -> int:
             fail(f"kernel {name} was not launched by the encode")
     if "jax" in sys.modules:
         fail("jax was imported")
+    if ctx.pipeline.device.type != "cuda":
+        fail(f"the default Config ran on {ctx.pipeline.device}, not the card")
 
     t = time.monotonic()
     verify_decode(pkts)
@@ -387,18 +471,26 @@ def main() -> int:
     small = small_clip_phase(rav1e_tpu_torch, dev)
     phase("small-clip", t, small)
 
+    # the PyTorch port imports nothing of the JAX package
+    ref_mods = sorted(m for m in sys.modules
+                      if m == "rav1e_tpu" or m.startswith("rav1e_tpu."))
+    if ref_mods:
+        fail(f"modules of rav1e_tpu were imported: {ref_mods}")
+
     out = {"kernels": []}
     for name, src, rep in (
         ("satd8", "rav1e_tpu_torch/csrc/satd8.cu",
          "rav1e_tpu/device/pallas_kernels.py:150"),
-        ("sad_grid", "rav1e_tpu_torch/csrc/sad_grid.cu",
+        ("grid_search", "rav1e_tpu_torch/csrc/grid_search.cu",
          "rav1e_tpu/device/pallas_kernels.py:229"),
     ):
         s = ksum[name]
         out["kernels"].append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches[name], "max_abs_err": s["max_abs_err"],
-            "ms": s["ms"], "plain_ms": s["plain_ms"], "shape": s["shape"],
+            "ms": s["ms"], "plain_ms": s["plain_ms"],
+            "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
+            "library_ms": None, "shape": s["shape"],
         })
     print(info, flush=True)
     print(json.dumps(out), flush=True)

@@ -4,8 +4,8 @@ Counterpart of ``rav1e_tpu/device``: one whole-frame analysis per frame
 (device motion estimation, 13-mode intra scoring, transform-domain rate and
 distortion estimates, bottom-up partition merge) and the device CDEF stage,
 on PyTorch tensors with two hand-written CUDA kernels (``kernels.satd8``,
-``kernels.sad_grid``).  The host tile coders of ``rav1e_tpu`` consume the
-resulting decision maps.
+``kernels.grid_search``).  The port's host tile coders consume the resulting
+decision maps.
 """
 
 from rav1e_tpu_torch.device.analysis import (

@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels from ``csrc/*.cu`` at first use and load them.
 
-``nvcc`` compiles every source under ``rav1e_tpu_torch/csrc`` into one shared
+``nvcc`` compiles every source under ``rav1e_tpu_torch/csrc`` (one process
+per source, all started together) and links the objects into one shared
 library with a plain C interface, ``build/rav1e_tpu_torch/libr1t_kernels.so``
 at the repository root, keyed by a hash of the sources and flags (as
 ``native/librav1e_tpu_ec.so.hash`` is for the host coder).  It is loaded with
@@ -24,8 +25,9 @@ BUILD_DIR = _PKG.parent / "build" / "rav1e_tpu_torch"
 LIB_PATH = BUILD_DIR / "libr1t_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+NVCC_TIMEOUT_S = 900
 
 _lib = None
 # nvcc's and ptxas's report of the last build in this process (registers,
@@ -69,20 +71,48 @@ def build() -> Path:
     stamp = LIB_PATH.with_name(LIB_PATH.name + ".hash")
     if LIB_PATH.exists() and stamp.exists() and stamp.read_text() == digest:
         return LIB_PATH
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, LIB_PATH)
+    pid = os.getpid()
+    objs = [BUILD_DIR / f"{s.stem}.{pid}.o" for s in srcs]
+    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{pid}.tmp")
+    # one nvcc per source, all at once, then one link
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+            for s, o in zip(srcs, objs)]
+    procs = []
+    try:
+        for c in cmds:
+            procs.append(subprocess.Popen(c, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+        logs = []
+        for cmd, p in zip(cmds, procs):
+            out, _ = p.communicate(timeout=NVCC_TIMEOUT_S)
+            logs.append(_checked(cmd, p.returncode, out))
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              timeout=NVCC_TIMEOUT_S)
+        logs.append(_checked(link, proc.returncode, proc.stdout))
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     stamp.write_text(digest)
-    build_log = proc.stdout + proc.stderr
+    build_log = "".join(logs)
     return LIB_PATH
+
+
+def _checked(cmd, returncode: int, output: str) -> str:
+    if returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {returncode}:\n{' '.join(cmd)}\n"
+            f"{output}"
+        )
+    return output
 
 
 def lib() -> ctypes.CDLL:
@@ -95,11 +125,10 @@ def lib() -> ctypes.CDLL:
             c.c_void_p, c.c_void_p, c.c_longlong, c.c_int, c.c_int, c.c_void_p,
         ]
         so.r1t_satd8.restype = c.c_int
-        so.r1t_sad_grid.argtypes = [
-            c.c_void_p, c.c_void_p, c.c_void_p, c.c_int, c.c_int, c.c_int,
-            c.c_int, c.c_int, c.c_void_p,
+        so.r1t_grid_search.argtypes = [
+            *[c.c_void_p] * 7, *[c.c_int] * 9, c.c_void_p,
         ]
-        so.r1t_sad_grid.restype = c.c_int
+        so.r1t_grid_search.restype = c.c_int
         so.r1t_error_string.argtypes = [c.c_int]
         so.r1t_error_string.restype = c.c_char_p
         _lib = so

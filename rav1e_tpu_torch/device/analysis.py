@@ -24,8 +24,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from rav1e_tpu import tables
-from rav1e_tpu.partition import PredictionMode, intra_mode_to_angle
+from rav1e_tpu_torch import tables
+from rav1e_tpu_torch.partition import PredictionMode, intra_mode_to_angle
 from rav1e_tpu_torch.device import kernels
 from rav1e_tpu_torch.device.constants import (
     EDGE_KERNELS,

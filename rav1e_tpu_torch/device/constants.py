@@ -4,11 +4,12 @@ The encoder has no weights: its parameters are constant tables.  Two kinds
 live here.
 
 - The small numpy plans that ``rav1e_tpu.device.*`` keeps in its own
-  modules.  Importing those modules pulls in JAX, so this module holds its
-  own copies (``tests/test_torch_encode.py`` holds every copy equal to the
+  modules, which import JAX; this module holds its own copies
+  (``tests/test_torch_encode.py`` holds every copy equal to the
   reference's).
 - :func:`from_reference`, which builds the port's tensors on a device from
-  the JAX-free numpy sources of ``rav1e_tpu`` (``ops/``, ``tables``).
+  the port's own numpy host modules (``ops/``, ``tables``: copies of
+  ``rav1e_tpu``'s).
   :func:`on` caches one such set per device.
 """
 
@@ -20,8 +21,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from rav1e_tpu.ops.cdef import CDEF_UV_DIR_422, _partial_matrices
-from rav1e_tpu.ops.intra import (
+from rav1e_tpu_torch.ops.cdef import CDEF_UV_DIR_422, _partial_matrices
+from rav1e_tpu_torch.ops.intra import (
     DR_INTRA_DERIVATIVE,
     SM_WEIGHTS,
     select_ief_strength,
@@ -174,8 +175,8 @@ def hadamard8_f32():
 def dct_basis(s: int):
     """Calibrated forward DCT basis for size s (from ops/transforms) plus
     the tx->pixel SSE gain and the tx size's log_tx_scale."""
-    from rav1e_tpu.ops.transforms import _fwd_matrices
-    from rav1e_tpu.tx import TxSize, TxType, get_log_tx_scale
+    from rav1e_tpu_torch.ops.transforms import _fwd_matrices
+    from rav1e_tpu_torch.tx import TxSize, TxType, get_log_tx_scale
 
     tx_size = TxSize[f"TX_{s}X{s}"]
     fv, fh = _fwd_matrices(tx_size, TxType.DCT_DCT)

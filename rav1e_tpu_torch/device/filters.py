@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rav1e_tpu.ops.cdef import (
+from rav1e_tpu_torch.ops.cdef import (
     CDEF_DIRECTIONS,
     CDEF_SEC_STRENGTHS,
     CDEF_VERY_LARGE,
@@ -341,7 +341,7 @@ def cdef_device_frame(rec_frame, src_frame, blocks, bd, cs, crop_w, crop_h,
     chosen filtering to rec_frame in place.  Candidate lists match host
     cdef_rdo_frame exactly.
     """
-    from rav1e_tpu.config import ChromaSampling
+    from rav1e_tpu_torch.config import ChromaSampling
 
     y_strengths, uv_strengths = _strength_lists(base_y, base_uv)
     sb_rows = (crop_h + 63) // 64

@@ -2,9 +2,10 @@
 
 Counterpart of ``rav1e_tpu/device/me.py`` (and of ``device/dsp.py`` for the
 window gather).  Every level evaluates a fixed candidate grid around its seed
-for every block at once: full-pel SADs through the :func:`kernels.sad_grid`
-kernel, then a 7x7 eighth-pel grid with exact 8-tap REGULAR interpolation
-scored through the :func:`kernels.satd8` kernel.
+for every block at once: each full-pel round is one :func:`kernels.grid_search`
+kernel (window gather, SADs and argmin), then a 7x7 eighth-pel grid with
+exact 8-tap REGULAR interpolation is scored through the :func:`kernels.satd8`
+kernel.
 
 Levels: L2 quarter-res (step-2 R=3, then step-1 R=1), L1 half-res (R=2, two
 seeds), L0 full-res (R=2, two seeds), then subpel.  Output: per-16x16-cell
@@ -18,7 +19,7 @@ import functools
 
 import torch
 
-from rav1e_tpu.ops.mc import SUBPEL_FILTERS
+from rav1e_tpu_torch.ops.mc import SUBPEL_FILTERS
 from rav1e_tpu_torch.device import kernels
 from rav1e_tpu_torch.device.constants import (
     L0_CLIP,
@@ -61,60 +62,13 @@ def _pad_edge(a, p: int):
     return a[ry[:, None], rx[None, :]]
 
 
-def _gather_windows(ref_pad, ty, tx, W):
-    """(n,) top-left coords -> (n, W, W) windows, by advanced indexing."""
-    ar = torch.arange(W, dtype=_I32, device=ref_pad.device)
-    wy = ty[:, None, None] + ar[None, :, None]
-    wx = tx[:, None, None] + ar[None, None, :]
-    return ref_pad[wy, wx]
-
-
-@functools.lru_cache(None)
-def _grid_tie(R: int, device):
-    side = 2 * R + 1
-    return torch.tensor(
-        [abs(oy - R) + abs(ox - R) for oy in range(side) for ox in range(side)],
-        dtype=_I32, device=device,
-    )
-
-
 def _grid_search(src_blocks, ref_pad, base_y, base_x, seeds, blk, R, step,
                  pad_off, clip_mv):
-    """One full-pel candidate-grid round for every block at once.
-
-    src_blocks: (n, blk, blk) int32; seeds: list of (n, 2) int32 px seeds
-    (each clipped to +-clip_mv); evaluates the (2R+1)^2 grid at `step` px
-    spacing around every seed and picks the global best per block.  SADs are
-    scaled by 64 and offset by the L1 norm of the grid offset and the seed
-    index, so ties prefer the earlier seed and the candidate nearest it.
-    Returns the updated (n, 2) int32 MVs.
-    """
-    side = 2 * R + 1
-    ncand = side * side
-    W = blk + 2 * R * step
-    tie = _grid_tie(R, src_blocks.device)
-    sads = []
-    origins = []
-    for si, seed in enumerate(seeds):
-        sy = seed[:, 0].clamp(-clip_mv, clip_mv)
-        sx = seed[:, 1].clamp(-clip_mv, clip_mv)
-        ty = base_y + sy - R * step + pad_off
-        tx = base_x + sx - R * step + pad_off
-        win = _gather_windows(ref_pad, ty, tx, W)
-        origins.append((sy, sx))
-        d = kernels.sad_grid(src_blocks, win, blk, R, step)
-        sads.append(d * 64 + tie[None, :] + si)
-    S = torch.cat(sads, dim=1)  # (n, nseeds * ncand)
-    k = torch.argmin(S, dim=1).to(_I32)
-    kk = k % ncand
-    oy = kk // side - R
-    ox = kk % side - R
-    si = (k // ncand).long()[:, None]
-    sy = torch.stack([o[0] for o in origins], dim=1)  # (n, nseeds)
-    sx = torch.stack([o[1] for o in origins], dim=1)
-    by = torch.gather(sy, 1, si)[:, 0]
-    bx = torch.gather(sx, 1, si)[:, 0]
-    return torch.stack([by + step * oy, bx + step * ox], dim=-1)
+    """One full-pel candidate-grid round for every block at once, through
+    the grid_search kernel (kernels.grid_search_plain says what it
+    computes).  Returns the updated (n, 2) int32 MVs."""
+    return kernels.grid_search(src_blocks, ref_pad, base_y, base_x, seeds,
+                               blk, R, step, pad_off, clip_mv)
 
 
 def _up2_mvs(mv, ny, nx):
@@ -164,7 +118,7 @@ def _subpel_refine(src_blocks, ref_pad, base_y, base_x, mv_full, pad_off,
     W = blk + 9
     ty = base_y + my - 4 + pad_off
     tx = base_x + mx - 4 + pad_off
-    win = _gather_windows(ref_pad, ty, tx, W)  # (n, W, W) int32
+    win = kernels.gather_windows(ref_pad, ty, tx, W)  # (n, W, W) int32
 
     variants = subpel_variants()
     # horizontal pass per column variant: (n, W, blk) int32

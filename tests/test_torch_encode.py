@@ -1,9 +1,11 @@
 """rav1e_tpu_torch end to end: the speed-6 device-analysis slice (device chain
 off) gives the same packets as rav1e_tpu, byte for byte, and every packet
-decodes to its reconstruction.  Also: the port never imports JAX, its
-constant tables equal the reference's, and its Config refuses the settings
-that are not ported yet."""
+decodes to its reconstruction.  Also: the port imports neither JAX nor
+anything of rav1e_tpu, its constant tables equal the reference's, its Config
+runs on CUDA unless asked for the CPU, and it refuses the settings that are
+not ported yet."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -15,16 +17,19 @@ import pytest
 import rav1e_tpu
 import rav1e_tpu_torch
 from rav1e_tpu.decoder import decode_packet
+from rav1e_tpu_torch.decoder import decode_packet as port_decode_packet
 
 ROOT = Path(__file__).resolve().parent.parent
 W, H, NFRAMES = 192, 128, 6
 
 
 def _config(pkg, **kw):
-    ss = rav1e_tpu.SpeedSettings.from_preset(6)
+    """The same settings as each package's own objects: a port object never
+    equals its rav1e_tpu twin."""
+    ss = pkg.SpeedSettings.from_preset(6)
     ss.device_chain = False
     return pkg.Config(
-        enc=rav1e_tpu.EncoderConfig(
+        enc=pkg.EncoderConfig(
             width=W, height=H, quantizer=115, low_latency=False,
             speed_settings=ss, min_key_frame_interval=0,
             max_key_frame_interval=999,
@@ -33,7 +38,7 @@ def _config(pkg, **kw):
     )
 
 
-def _encode(cfg):
+def _encode(cfg, pkg):
     ctx = cfg.new_context()
     rng = np.random.default_rng(77)
     coarse = rng.integers(0, 256, (H // 8 + 2, W // 8 + 2))
@@ -51,46 +56,98 @@ def _encode(cfg):
     while True:
         try:
             pkts.append(ctx.receive_packet())
-        except rav1e_tpu.EncoderStatus.LimitReached:
+        except pkg.EncoderStatus.LimitReached:
             return pkts
 
 
 def test_slice_packets_match_reference(monkeypatch):
     from rav1e_tpu.device import analysis as ana
-    from rav1e_tpu.utils import trace
     from rav1e_tpu_torch.device import kernels
+    from rav1e_tpu_torch.utils import trace
 
     # the reference on one device (see test_torch_analysis)
     monkeypatch.setenv("RAV1E_TPU_NO_SHARD", "1")
     ana._analysis_mesh.cache_clear()
     try:
-        want = _encode(_config(rav1e_tpu))
+        want = _encode(_config(rav1e_tpu), rav1e_tpu)
     finally:
         ana._analysis_mesh.cache_clear()
 
+    # the port's own trace module: the reference's is another object
     monkeypatch.setattr(trace, "_enabled", True)
     trace.reset()
     kernels.reset_launches()
-    got = _encode(_config(rav1e_tpu_torch, device="cpu"))
+    got = _encode(_config(rav1e_tpu_torch, device="cpu"), rav1e_tpu_torch)
     spans = trace.stage_summary()
     trace.reset()
 
     assert len(got) == len(want) >= NFRAMES
     for i, (g, w) in enumerate(zip(got, want)):
         assert g.data == w.data, f"packet {i} differs"
-    state = None
-    for i, p in enumerate(got):
-        dec, state = decode_packet(p.data, state)
-        if p.rec is None:
-            continue
-        for pi, dp in enumerate(dec.planes):
-            a = dp.as_array()
-            b = p.rec.planes[pi].as_array()[: a.shape[0], : a.shape[1]]
-            assert np.array_equal(a, b), f"packet {i} plane {pi}"
+    # every packet decodes to its reconstruction, through the port's own
+    # decoder and through the reference's
+    for decode in (port_decode_packet, decode_packet):
+        state = None
+        for i, p in enumerate(got):
+            dec, state = decode(p.data, state)
+            if p.rec is None:
+                continue
+            for pi, dp in enumerate(dec.planes):
+                a = dp.as_array()
+                b = p.rec.planes[pi].as_array()[: a.shape[0], : a.shape[1]]
+                assert np.array_equal(a, b), f"packet {i} plane {pi}"
     # the port's device stages ran, on the CPU with the plain versions
     assert spans["device_analysis"]["count"] >= NFRAMES
     assert spans["cdef_rdo_device"]["count"] >= 1
-    assert kernels.LAUNCHES == {"satd8": 0, "sad_grid": 0}
+    assert all(n == 0 for n in kernels.LAUNCHES.values())
+
+
+def _imports_of_rav1e_tpu(path):
+    """(line, statement) of each import of rav1e_tpu or rav1e_tpu.* in a
+    file, top level or inside a function."""
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            if name == "rav1e_tpu" or name.startswith("rav1e_tpu."):
+                bad.append((node.lineno, name))
+    return bad
+
+
+def _port_files():
+    return (sorted((ROOT / "rav1e_tpu_torch").rglob("*.py"))
+            + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_slice_profile.py",
+               ROOT / "tools" / "grid_search_bench.py"])
+
+
+def test_port_imports_nothing_of_rav1e_tpu():
+    files = _port_files()
+    assert len(files) > 40
+    found = {str(f.relative_to(ROOT)): b for f in files
+             if (b := _imports_of_rav1e_tpu(f))}
+    assert found == {}
+
+
+def test_import_scan_catches_rav1e_tpu(tmp_path):
+    """The scan above matches the JAX package and its modules, lazy imports
+    included, and not the port's own name."""
+    f = tmp_path / "m.py"
+    f.write_text(
+        "import rav1e_tpu_torch\n"
+        "from rav1e_tpu_torch.ops import cdef\n"
+        "import rav1e_tpu\n"
+        "def g():\n"
+        "    from rav1e_tpu.ops import cdef\n"
+        "    import rav1e_tpu.tables as t\n"
+        "from . import sibling\n"
+    )
+    assert _imports_of_rav1e_tpu(f) == [
+        (3, "rav1e_tpu"), (5, "rav1e_tpu.ops"), (6, "rav1e_tpu.tables")]
 
 
 def test_port_never_imports_jax():
@@ -109,14 +166,22 @@ def test_port_never_imports_jax():
         " np.uint8))\n"
         "    ctx.send_frame(f)\n"
         "ctx.flush()\n"
-        "n = 0\n"
+        "pkts = []\n"
         "while True:\n"
         "    try:\n"
-        "        ctx.receive_packet(); n += 1\n"
+        "        pkts.append(ctx.receive_packet())\n"
         "    except r.EncoderStatus.LimitReached:\n"
         "        break\n"
+        "n = len(pkts)\n"
         "assert n >= 2, n\n"
+        "from rav1e_tpu_torch.decoder import decode_packet\n"
+        "state = None\n"
+        "for p in pkts:\n"
+        "    dec, state = decode_packet(p.data, state)\n"
         "assert 'jax' not in sys.modules\n"
+        "mods = [m for m in sys.modules\n"
+        "        if m == 'rav1e_tpu' or m.startswith('rav1e_tpu.')]\n"
+        "assert not mods, mods\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -205,7 +270,7 @@ def _assert_nested_equal(a, b):
         ("device_chain", True, "device-chain"),
         ("mesh_shape", {"tile": 2}, "mesh_shape"),
         ("parallel_gops", 2, "parallel_gops"),
-        ("device", None, "device is required"),
+        ("device", "default", "CUDA is not available"),
         ("device", "tpu", "tpu"),
         ("device", "cuda:7", "cuda:7"),
     ],
@@ -215,10 +280,17 @@ def test_config_rejects_unported_settings(field, value, match, monkeypatch):
 
     # "cuda:7" must be refused whether or not a card is present
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    cfg = _config(rav1e_tpu_torch, device="cpu")
+    if value == "default":
+        # no device given -> "cuda", with no fallback to the CPU on a box
+        # without a card
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        cfg = _config(rav1e_tpu_torch)
+        assert cfg.device == "cuda"
+    else:
+        cfg = _config(rav1e_tpu_torch, device="cpu")
     if field == "device_chain":
         cfg.enc.speed_settings.device_chain = value
-    else:
+    elif value != "default":
         setattr(cfg, field, value)
     with pytest.raises(rav1e_tpu_torch.InvalidConfig, match=match):
         cfg.new_context()

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 import rav1e_tpu.ops.cdef as cdef_mod
+import rav1e_tpu_torch
 from rav1e_tpu.config import ChromaSampling
 from rav1e_tpu.frame import Frame
 
@@ -31,6 +32,17 @@ def _mk(rng, W, H, bd, cs):
     blocks.cols, blocks.rows = mi_cols, mi_rows
     blocks.skip = rng.integers(0, 2, (mi_rows, mi_cols)).astype(bool)
     return rec, src, blocks
+
+
+def _to_port(frame, W, H, bd, cs):
+    """The port's own Frame holding the same samples: a rav1e_tpu Frame is
+    another class."""
+    out = rav1e_tpu_torch.Frame.new(W, H, rav1e_tpu_torch.ChromaSampling(int(cs)),
+                                    bd)
+    for q, p in zip(out.planes, frame.planes):
+        assert q.data.shape == p.data.shape
+        q.data[...] = p.data
+    return out
 
 
 def _clone(frame):
@@ -72,10 +84,11 @@ def test_cdef_device_frame_matches_reference(bd, cs):
     ys_j, us_j, idx_j, _ = ref_cdef(jax_rec, src, blocks, bd, cs, W, H,
                                     damping, base_y, base_uv)
 
-    port_rec = _clone(rec)
+    port_rec = _to_port(rec, W, H, bd, cs)
     ys_t, us_t, idx_t, applied = cdef_device_frame(
-        port_rec, src, blocks, bd, cs, W, H, damping, base_y, base_uv,
-        device="cpu",
+        port_rec, _to_port(src, W, H, bd, cs), blocks, bd,
+        rav1e_tpu_torch.ChromaSampling(int(cs)), W, H, damping, base_y,
+        base_uv, device="cpu",
     )
     assert applied
     assert ys_t == ys_h == ys_j and us_t == us_h == us_j
@@ -127,12 +140,14 @@ def test_cdef_device_frame_all_skip():
     from rav1e_tpu_torch.device.filters import cdef_device_frame
 
     rng = np.random.default_rng(3)
-    rec, src, blocks = _mk(rng, 64, 64, 8, ChromaSampling.Cs420)
+    cs = ChromaSampling.Cs420
+    rec, src, blocks = _mk(rng, 64, 64, 8, cs)
+    rec, src = _to_port(rec, 64, 64, 8, cs), _to_port(src, 64, 64, 8, cs)
     blocks.skip[:] = True
     before = [p.data.copy() for p in rec.planes]
     ys, us, idx, applied = cdef_device_frame(
-        rec, src, blocks, 8, ChromaSampling.Cs420, 64, 64, 3, 9, 5,
-        device="cpu",
+        rec, src, blocks, 8, rav1e_tpu_torch.ChromaSampling.Cs420, 64, 64, 3,
+        9, 5, device="cpu",
     )
     assert not applied
     assert np.all(idx == 0)

@@ -52,9 +52,9 @@ def stage_times(clip, width, height, reps=3):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from rav1e_tpu import tables
-    from rav1e_tpu.config import ChromaSampling
-    from rav1e_tpu.frame import Frame
+    from rav1e_tpu_torch import tables
+    from rav1e_tpu_torch.config import ChromaSampling
+    from rav1e_tpu_torch.frame import Frame
     from rav1e_tpu_torch.device import analysis, filters
 
     qi = chip_smoke.QUANTIZER
@@ -111,7 +111,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     import rav1e_tpu_torch
-    from rav1e_tpu.utils import trace
+    from rav1e_tpu_torch.utils import trace
 
     if not torch.cuda.is_available():
         chip_smoke.fail("no CUDA card")
