@@ -36,7 +36,31 @@ Phases, each printing one line with its time:
    bidirectional frame: MV fields exactly equal, and every differing
    decision cell a near-tie (relative cost gap < 1e-5 on the CPU);
 8. small clip: a 256x128 6-frame encode (chain on) on the card and on the
-   CPU gives byte-identical packets.
+   CPU gives byte-identical packets;
+9. cli (run right after the slice, its decode check in the decode phase):
+   the slice's clip written to a y4m and encoded by
+   ``python -m rav1e_tpu_torch.cli`` in a subprocess on the card with the
+   slice's settings; the IVF payloads equal the slice's packets byte for
+   byte, and the decode phase holds every shown frame against the CLI's
+   ``-r`` reconstruction; prints the CLI's frames/s, chain frames and
+   kernel launches;
+10. gop: 48 frames of 1080p with keyframes every 16 through
+   ``Config.new_channel()`` with ``parallel_gops=3`` (a CUDA stream per
+   worker): the packets equal, in order, each 16-frame chunk encoded alone
+   in a fresh serial context, and decode to their reconstructions (each
+   chunk in a process of its own, checked after the configs phase); a
+   serial channel over the same frames for the numbers only; each channel
+   timed without and then under the profiler, in turns: frames/s, host CPU
+   time, and under the profiler the device idle share (its busy time over
+   the wall time) and the most CUDA streams busy at once;
+11. capi: the port's C shim and example (``rav1e_tpu_torch/capi/``) built
+   with g++ and the Python embed flags, run with "cuda" and with "cpu":
+   the packet lines must be identical;
+12. configs: a 256x128 6-frame clip on the card and on the CPU (in worker
+   processes) gives byte-identical packets at 10 and 12 bit, 4:2:2, 4:4:4,
+   2x2 tiles, low latency, speeds 8, 9 and 10, and a ragged 200x136 clip;
+   then 4 seeds of ``fuzz_encode_decode`` on the card; prints each
+   configuration's chain frames and kernel launches.
 
 The line before the last is the kernels' JSON summary, preceded by
 nvidia-smi's name and power limit; the last line is
@@ -50,13 +74,18 @@ peak), computed from this run's inputs.
 from __future__ import annotations
 
 import json
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 WIDTH, HEIGHT, NFRAMES, QUANTIZER = 1920, 1080, 16, 120
+GOP_FRAMES, GOP_LEN, GOP_SLOTS = 48, 16, 3
 NEAR_TIE = 1e-5
 SEED = 42
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -254,15 +283,16 @@ def kernel_phase(dev, luma0, luma1):
 # ---------------------------------------------------------------------------
 
 
-def synth_clip(w, h, n, rng):
+def synth_clip(w, h, n, rng, xdec=1, ydec=1, bd=8):
     """bench.py's seeded synthetic pan: a blurred coarse texture panning 2 px
-    a frame, with per-frame noise; per-plane uint8 arrays."""
+    a frame, with per-frame noise; per-plane uint8 arrays (uint16 scaled to
+    ``bd`` above 8 bits), chroma decimated by ``xdec``/``ydec``."""
     scene = {}
     frames = []
+    cw_, ch_ = (w + xdec) >> xdec, (h + ydec) >> ydec
     for t in range(n):
         planes = []
-        for i, (ch, cw) in enumerate(((h, w), ((h + 1) // 2, (w + 1) // 2),
-                                      ((h + 1) // 2, (w + 1) // 2))):
+        for i, (ch, cw) in enumerate(((h, w), (ch_, cw_), (ch_, cw_))):
             if i not in scene:
                 coarse = rng.integers(0, 256, ((ch + 7) // 8 + 1,
                                                (cw + 7) // 8 + 1))
@@ -276,7 +306,8 @@ def synth_clip(w, h, n, rng):
                 scene[i] = up[:ch, :cw]
             arr = np.roll(scene[i], t * 2, axis=1)
             noise = rng.integers(-2, 3, (ch, cw))
-            planes.append(np.clip(arr + noise, 0, 255).astype(np.uint8))
+            px = np.clip(arr + noise, 0, 255).astype(np.uint8)
+            planes.append(px.astype(np.uint16) << (bd - 8) if bd > 8 else px)
         frames.append(planes)
     return frames
 
@@ -314,19 +345,48 @@ def encode(ctx, clip, rav1e_tpu_torch):
             return pkts
 
 
-def verify_decode(pkts):
+def decode_mismatch(pkts, shown=None):
+    """Decode (data, rec planes or None, show_frame) triples in order
+    through rav1e_tpu_torch.decoder; returns the first mismatch with a
+    packet's reconstruction, or with the next of the ``shown`` frames (the
+    planes a y4m reconstruction holds) for a shown packet, else None."""
     from rav1e_tpu_torch.decoder import decode_packet
 
     state = None
-    for i, p in enumerate(pkts):
-        dec, state = decode_packet(p.data, state)
-        if p.rec is None:
+    k = 0
+    for i, (data, rec, show) in enumerate(pkts):
+        dec, state = decode_packet(data, state)
+        if rec is None:
             continue
         for pi, dp in enumerate(dec.planes):
             a = dp.as_array()
-            b = p.rec.planes[pi].as_array()[: a.shape[0], : a.shape[1]]
-            if not np.array_equal(a, b):
-                fail(f"packet {i} plane {pi} does not decode to its rec")
+            if not np.array_equal(a, rec[pi][: a.shape[0], : a.shape[1]]):
+                return f"packet {i} plane {pi} does not decode to its rec"
+        if shown is not None and show:
+            if k >= len(shown):
+                return f"packet {i}: more shown frames than {len(shown)}"
+            for pi, want in enumerate(shown[k]):
+                a = dec.planes[pi].as_array()
+                if not np.array_equal(a[: want.shape[0], : want.shape[1]],
+                                      want):
+                    return (f"packet {i} plane {pi} differs from shown "
+                            f"frame {k}")
+            k += 1
+    if shown is not None and k != len(shown):
+        return f"{k} shown packets for {len(shown)} shown frames"
+    return None
+
+
+def decode_triples(pkts):
+    return [(p.data, None if p.rec is None
+             else [pl.as_array() for pl in p.rec.planes], p.show_frame)
+            for p in pkts]
+
+
+def verify_decode(pkts, shown=None):
+    err = decode_mismatch(decode_triples(pkts), shown)
+    if err:
+        fail(err)
 
 
 def encode_phase(rav1e_tpu_torch, clip, chain, label):
@@ -622,6 +682,443 @@ def small_clip_phase(rav1e_tpu_torch, dev):
     return f"{len(a)} packets byte-identical card vs CPU"
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the command-line encoder
+# ---------------------------------------------------------------------------
+
+
+def subprocess_env():
+    """The environment of a child that imports the port from this checkout
+    (and, embedded in a C program, finds this interpreter's packages)."""
+    paths = [ROOT] + [q for q in sys.path if q and os.path.isdir(q)]
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(paths))
+
+
+def write_y4m(path, clip, w, h):
+    from rav1e_tpu_torch.config import ChromaSampling
+    from rav1e_tpu_torch.io import Y4MWriter
+
+    with open(path, "wb") as f:
+        y4m = Y4MWriter(f, w, h, 30, 1, ChromaSampling.Cs420, 8)
+        for planes in clip:
+            y4m.write_frame(planes)
+
+
+def cli_phase(clip, slice_pkts, tmp):
+    """``python -m rav1e_tpu_torch.cli`` on the slice's clip, on the card
+    (no --device: the CLI's default), with the slice's settings.  Returns
+    the report, the kernel launches the CLI printed, and the frames of its
+    -r reconstruction for the decode phase."""
+    from rav1e_tpu_torch.io import Y4MReader, read_ivf
+
+    src, ivf, rec = (os.path.join(tmp, n)
+                     for n in ("clip.y4m", "out.ivf", "rec.y4m"))
+    write_y4m(src, clip, WIDTH, HEIGHT)
+    cmd = [sys.executable, "-m", "rav1e_tpu_torch.cli", src, "-o", ivf,
+           "-r", rec, "--benchmark", "-s", "6", "-q", str(QUANTIZER),
+           "-i", "0", "-I", "9999"]
+    out = subprocess.run(cmd, cwd=ROOT, env=subprocess_env(),
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        fail(f"cli: exit code {out.returncode}\n{out.stderr[-3000:]}")
+    err = out.stderr
+    fps = re.search(r"encoded (\d+) frames in ([\d.]+)s \(([\d.]+) fps\)",
+                    err)
+    chain = re.search(r"chain_replay_code: .* x(\d+)", err)
+    kline = re.search(r"kernel launches: (.*)", err)
+    if not fps or not kline:
+        fail(f"cli: no benchmark summary in its output\n{err[-3000:]}")
+    launches = {k: int(v) for k, v in re.findall(r"(\w+)=(\d+)",
+                                                  kline.group(1))}
+    with open(ivf, "rb") as f:
+        payloads = [data for _pts, data in read_ivf(f)]
+    if payloads != [p.data for p in slice_pkts]:
+        fail(f"cli: its {len(payloads)} IVF payloads differ from the "
+             f"slice's {len(slice_pkts)} packets")
+    with open(rec, "rb") as f:
+        shown = list(Y4MReader(f))
+    for name in ("satd8", "grid_search"):
+        if launches.get(name, 0) <= 0:
+            fail(f"cli: kernel {name} was not launched")
+    report = (f"{len(payloads)} IVF payloads equal the slice's packets; "
+              f"{fps.group(1)} frames at {fps.group(3)} frames/s "
+              f"({fps.group(2)} s); {chain.group(1) if chain else 0} chain "
+              f"frames; launches {launches}")
+    return report, launches, shown
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the C API
+# ---------------------------------------------------------------------------
+
+
+def python_embed_flags():
+    """Compile and link flags of an embedded interpreter like this one."""
+    import shutil
+    import sysconfig
+
+    for exe in (f"python{sys.version_info.major}.{sys.version_info.minor}"
+                "-config", "python3-config"):
+        if shutil.which(exe):
+            inc = subprocess.run([exe, "--includes"], capture_output=True,
+                                 text=True).stdout.split()
+            ld = subprocess.run([exe, "--ldflags", "--embed"],
+                                capture_output=True, text=True).stdout.split()
+            if inc and ld:
+                return inc, ld
+    v = sysconfig.get_config_var
+    return ([f"-I{sysconfig.get_paths()['include']}"],
+            [f"-L{v('LIBDIR')}", f"-lpython{v('LDVERSION')}",
+             *(v("LIBS") or "").split(), *(v("SYSLIBS") or "").split()])
+
+
+def capi_replay(device):
+    """The example's encode (capi/capi_encode.c) through capi_glue in this
+    process, with the context's exceptions visible: the shim reports only a
+    status.  Returns the packet lines the example prints."""
+    from rav1e_tpu_torch import EncoderStatus, capi_glue as g
+
+    w, h = 96, 64
+    cfg = g.config_new()
+    for k, v in (("width", w), ("height", h), ("speed", 10),
+                 ("quantizer", 120), ("low_latency", 1), ("device", device)):
+        g.config_set(cfg, k, str(v))
+    ctx = g.context_new(cfg)
+    for i in range(5):
+        f = g.frame_new(ctx)
+        y = ((np.arange(w * h) + i * 7) & 0xFF).astype(np.uint8).tobytes()
+        for pl, (data, stride) in enumerate(
+                ((y, w), (bytes([100 + i]) * (w * h // 4), w // 2),
+                 (bytes([160 - i]) * (w * h // 4), w // 2))):
+            g.frame_fill_plane(f, pl, data, stride, 1)
+        ctx.send_frame(f)
+    ctx.flush()
+    lines = []
+    while True:
+        try:
+            pkt = ctx.receive_packet()
+        except EncoderStatus.LimitReached:
+            return lines
+        lines.append(f"packet {len(lines)}: frame {pkt.input_frameno} type "
+                     f"{int(pkt.frame_type)} {len(pkt.data)} bytes")
+
+
+def capi_phase():
+    """The port's C shim and example built with g++, run on the card and on
+    the CPU: identical packet lines."""
+    inc, ld = python_embed_flags()
+    out_dir = os.path.join(ROOT, "build", "rav1e_tpu_torch")
+    os.makedirs(out_dir, exist_ok=True)
+    exe = os.path.join(out_dir, "capi_encode")
+    capi = os.path.join(ROOT, "rav1e_tpu_torch", "capi")
+    t = time.monotonic()
+    build = subprocess.run(
+        ["g++", "-O2", os.path.join(capi, "capi.cc"),
+         os.path.join(capi, "capi_encode.c"),
+         "-I" + os.path.join(ROOT, "include"), *inc, *ld, "-o", exe],
+        capture_output=True, text=True, timeout=300)
+    if build.returncode != 0:
+        fail(f"capi: g++ failed\n{build.stderr[-3000:]}")
+    build_s = time.monotonic() - t
+    lines = {}
+    for dev in ("cuda", "cpu"):
+        run = subprocess.run([exe, dev], cwd=ROOT, env=subprocess_env(),
+                             capture_output=True, text=True, timeout=300)
+        if run.returncode != 0:
+            print(f"capi ({dev}): exit code {run.returncode}\n{run.stdout}"
+                  f"\n{run.stderr[-3000:]}\nthe same encode in this "
+                  "process:", flush=True)
+            capi_replay(dev)
+            fail(f"capi ({dev}): exit code {run.returncode}, and the same "
+                 "encode in this process did not fail")
+        lines[dev] = [ln for ln in run.stdout.splitlines()
+                      if ln.startswith("packet ")]
+    if not lines["cuda"] or lines["cuda"] != lines["cpu"]:
+        fail(f"capi: card and CPU packets differ:\n{lines}")
+    return (f"built in {build_s:.3f} s; {len(lines['cuda'])} packet lines "
+            "identical card vs CPU")
+
+
+# ---------------------------------------------------------------------------
+# phase 10: GOP-parallel encoding on one card
+# ---------------------------------------------------------------------------
+
+
+def gop_config(r, slots):
+    cfg = slice_config(r)
+    cfg.enc.min_key_frame_interval = GOP_LEN
+    cfg.enc.max_key_frame_interval = GOP_LEN
+    cfg.parallel_gops = slots
+    return cfg
+
+
+def channel_encode(cfg, clip):
+    sender, receiver = cfg.new_channel()
+    for planes in clip:
+        f = sender.new_frame()
+        for p, arr in zip(f.planes, planes):
+            p.copy_from(arr)
+        sender.send(f)
+    sender.close()
+    return list(receiver)
+
+
+def device_activity(prof):
+    """(device-busy ms, the most CUDA streams busy at once) of a profiled
+    run: the union of the device activities' intervals, and a sweep over
+    each stream's merged intervals."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    by_stream = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            s0 = e.start_ns()
+            by_stream.setdefault(e.device_resource_id(), []).append(
+                (s0, s0 + e.duration_ns()))
+
+    def merged(spans):
+        out = []
+        for s0, s1 in sorted(spans):
+            if out and s0 <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], s1)
+            else:
+                out.append([s0, s1])
+        return out
+
+    busy = sum(s1 - s0 for s0, s1 in
+               merged([x for v in by_stream.values() for x in v]))
+    edges = sorted((t, d) for v in by_stream.values()
+                   for s0, s1 in merged(v) for t, d in ((s0, 1), (s1, -1)))
+    now = most = 0
+    for _t, d in edges:  # at equal times an end (-1) sorts before a start
+        now += d
+        most = max(most, now)
+    return busy / 1e6, most
+
+
+def _decode_chunk(triples):
+    return decode_mismatch(triples)
+
+
+def gop_run(r, slots, clip, profiled):
+    """One channel with ``slots`` GOP slots (0: serial) over ``clip``, its
+    launch counts set to 0 just before and read just after: its packets and
+    numbers, with the device's busy time and the most streams busy at once
+    when ``profiled``."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rav1e_tpu_torch.device import kernels
+    from rav1e_tpu_torch.utils import trace
+
+    cfg = gop_config(r, slots)
+    trace.reset()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    prof = (profile(activities=[ProfilerActivity.CUDA]) if profiled
+            else contextlib.nullcontext())
+    with prof:
+        t = time.monotonic()
+        cpu = time.process_time()
+        pkts = channel_encode(cfg, clip)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t
+        cpu = time.process_time() - cpu
+    run = dict(pkts=pkts, launches=dict(kernels.LAUNCHES), wall=wall,
+               fps=len(clip) / wall, profiled=profiled, cpu=cpu,
+               chain=span_count(trace.stage_summary(), "chain_replay_code"),
+               stop_s=time.monotonic() - t - wall)
+    trace.reset()
+    if len(pkts) < len(clip):
+        fail(f"gop: {len(pkts)} packets for {len(clip)} frames "
+             f"(parallel_gops={slots})")
+    for name in ("satd8", "grid_search"):
+        if run["launches"].get(name, 0) <= 0:
+            fail(f"gop (parallel_gops={slots}): kernel {name} was not "
+                 "launched")
+    if profiled:
+        t = time.monotonic()
+        busy_ms, streams = device_activity(prof)
+        run.update(busy_ms=busy_ms, idle=1.0 - busy_ms / (wall * 1e3),
+                   streams=streams, parse_s=time.monotonic() - t)
+    return run
+
+
+def gop_phase(r, decoders):
+    """3 GOP slots against each chunk encoded alone, and a serial channel:
+    each timed without the profiler and then under it, in turns (3 slots,
+    serial, serial, 3 slots).  The 3-slot packets start decoding in the
+    ``decoders`` pool, one chunk a process: returns the report, the launch
+    counts and the pending decode, which the caller collects (after the
+    phases that follow, since the decode takes longer than this phase)."""
+    t = time.monotonic()
+    clip = synth_clip(WIDTH, HEIGHT, GOP_FRAMES, np.random.default_rng(SEED))
+    steps = [f"clip {time.monotonic() - t:.1f} s"]
+    runs = []
+    for slots, profiled in ((GOP_SLOTS, False), (0, False), (0, True),
+                            (GOP_SLOTS, True)):
+        runs.append((slots, gop_run(r, slots, clip, profiled)))
+    par = runs[0][1]["pkts"]
+    if [p.data for p in par] != [p.data for p in runs[3][1]["pkts"]]:
+        fail("gop: the 3-slot packets differ between two runs")
+    # each chunk starts at a keyframe, so each decodes on its own: the 3-slot
+    # packets decode in worker processes while the chunks encode alone here
+    bounds = [0] + [i for i, p in enumerate(par)
+                    if p.input_frameno % GOP_LEN == 0 and i > 0
+                    and p.frame_type.name == "KEY"] + [len(par)]
+    chunks = [decode_triples(par[a:b]) for a, b in zip(bounds, bounds[1:])]
+    decoded = decoders.map_async(_decode_chunk, chunks)
+    t = time.monotonic()
+    want = []
+    for c in range(GOP_FRAMES // GOP_LEN):
+        ctx = gop_config(r, 0).new_context()
+        chunk = encode(ctx, clip[c * GOP_LEN : (c + 1) * GOP_LEN], r)
+        for p in chunk:
+            p.input_frameno += c * GOP_LEN
+        want.append(chunk)
+    steps.append(f"chunks alone {time.monotonic() - t:.1f} s")
+    flat = [p for chunk in want for p in chunk]
+    if len(par) != len(flat) or any(
+            (a.data, a.input_frameno) != (b.data, b.input_frameno)
+            for a, b in zip(par, flat)):
+        fail("gop: the 3-slot packets differ from the chunks encoded alone")
+    if len(chunks) != len(want):
+        fail(f"gop: {len(chunks)} keyframe-led chunks for {len(want)}")
+    lines = [f"{len(par)} packets of {GOP_SLOTS} slots equal the "
+             f"{len(want)} chunks encoded alone"]
+    for slots, run in runs:
+        line = (f"parallel_gops={slots}{' profiled' if run['profiled'] else ''}"
+                f": {run['fps']:.4f} frames/s ({GOP_FRAMES} frames in "
+                f"{run['wall']:.3f} s, host CPU {run['cpu']:.3f} s), "
+                f"{run['chain']} chain frames, launches {run['launches']}")
+        if run["profiled"]:
+            line += (f", device busy {run['busy_ms']:.1f} ms, idle share "
+                     f"{run['idle']:.6f}, most streams busy at once "
+                     f"{run['streams']}")
+        lines.append(line)
+        steps.append(f"stop {run['stop_s']:.1f} s"
+                     + (f" parse {run['parse_s']:.1f} s" if run["profiled"]
+                        else ""))
+    lines.append("steps: " + "; ".join(steps))
+    return lines, runs[0][1]["launches"], decoded
+
+
+def gop_decode_check(decoded):
+    errs = decoded.get(timeout=900)
+    if any(errs):
+        fail(f"gop: {[e for e in errs if e]}")
+    return (f"the {len(errs)} chunks of the 3-slot packets decode to their "
+            "rec")
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the other bit depths, chroma formats, tilings and presets
+# ---------------------------------------------------------------------------
+
+CONFIGS = (
+    # label, EncoderConfig fields, speed
+    ("10-bit 4:2:0 s6", {"bit_depth": 10}, 6),
+    ("12-bit 4:2:0 s6", {"bit_depth": 12}, 6),
+    ("8-bit 4:2:2 s6", {"chroma_sampling": "Cs422"}, 6),
+    ("8-bit 4:4:4 s6", {"chroma_sampling": "Cs444"}, 6),
+    ("2x2 tiles s6", {"tile_cols": 2, "tile_rows": 2}, 6),
+    ("low latency s6", {"low_latency": True}, 6),
+    ("speed 8", {}, 8),
+    ("speed 9", {}, 9),
+    ("speed 10", {}, 10),
+    ("ragged 200x136 s6", {"width": 200, "height": 136}, 6),
+)
+# the first four seeds whose random configuration reaches the device stages
+# (speed >= 6, both sides >= 64): 12-bit 4:4:4, 8-bit monochrome, 10-bit
+# 4:2:2 with two tile rows, and 8-bit 4:2:0 with the chain at 127x123
+FUZZ_SEEDS = (4, 5, 6, 10)
+
+
+def config_case(r, i, device):
+    """Configuration i of CONFIGS over a 6-frame seeded clip on
+    ``device``: (packets, chain frames, kernel launches)."""
+    from rav1e_tpu_torch.device import kernels
+    from rav1e_tpu_torch.utils import trace
+
+    _label, fields, speed = CONFIGS[i]
+    kw = {"width": 256, "height": 128, **fields}
+    if "chroma_sampling" in kw:
+        kw["chroma_sampling"] = r.ChromaSampling[kw["chroma_sampling"]]
+    enc = r.EncoderConfig(
+        quantizer=QUANTIZER, speed_settings=r.SpeedSettings.from_preset(speed),
+        min_key_frame_interval=0, max_key_frame_interval=9999,
+        **{"low_latency": False, **kw})
+    ctx = r.Config(enc=enc, device=device).new_context()
+    xdec, ydec = enc.chroma_sampling.decimation()
+    clip = synth_clip(enc.width, enc.height, 6,
+                      np.random.default_rng(SEED + i), xdec, ydec,
+                      enc.bit_depth)
+    trace.trace_enable()
+    trace.reset()
+    kernels.reset_launches()
+    pkts = encode(ctx, clip, r)
+    chain = span_count(trace.stage_summary(), "chain_replay_code")
+    trace.reset()
+    return pkts, chain, dict(kernels.LAUNCHES)
+
+
+def _config_case_cpu(i):
+    import torch
+
+    import rav1e_tpu_torch
+
+    torch.set_num_threads(2)
+    pkts, chain, _ = config_case(rav1e_tpu_torch, i, "cpu")
+    return [p.data for p in pkts], chain
+
+
+def configs_phase(r, dev):
+    """Each configuration on the card, against the CPU's packets encoded
+    meanwhile by worker processes; then the fuzz seeds on the card."""
+    import multiprocessing
+
+    from rav1e_tpu_torch.device import kernels
+    from rav1e_tpu_torch.utils import fuzzing
+
+    lines = []
+    with multiprocessing.get_context("spawn").Pool(4) as pool:
+        cpu = pool.map_async(_config_case_cpu, range(len(CONFIGS)))
+        card = [config_case(r, i, dev) for i in range(len(CONFIGS))]
+        cpu = cpu.get(timeout=900)
+    for (label, _f, _s), (pkts, chain, launches), (want, cchain) in zip(
+            CONFIGS, card, cpu):
+        if [p.data for p in pkts] != want:
+            fail(f"configs {label}: card packets differ from the CPU's")
+        lines.append(f"{label:18s} {len(pkts)} packets equal card vs CPU; "
+                     f"chain frames {chain} (CPU {cchain}); launches "
+                     f"{launches}")
+    for seed in FUZZ_SEEDS:
+        kernels.reset_launches()
+        n = fuzzing.fuzz_encode_decode(seed, dev)
+        lines.append(f"fuzz seed {seed}: {n} packets decode to their rec; "
+                     f"launches {dict(kernels.LAUNCHES)}")
+    return lines
+
+
+def guarded(name, failed, fn):
+    """fn()'s result; on a failure (its message or traceback printed),
+    None with ``name`` added to ``failed``."""
+    import traceback
+
+    try:
+        return fn()
+    except SystemExit:
+        pass
+    except Exception:
+        traceback.print_exc()
+    print(f"FAIL: phase {name}", file=sys.stderr, flush=True)
+    failed.append(name)
+    return None
+
+
 def main() -> int:
     t0 = time.monotonic()
     try:
@@ -677,9 +1174,17 @@ def main() -> int:
     if "jax" in sys.modules:
         fail("jax was imported")
 
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.monotonic()
+        cli_report, cli_launches, shown = cli_phase(clip, pkts, tmp)
+        phase("cli", t, cli_report)
+
+    # the slice's packets, which the CLI's IVF holds byte for byte
     t = time.monotonic()
-    verify_decode(pkts)
-    phase("decode", t, f"{len(pkts)} packets decode to their rec")
+    verify_decode(pkts, shown)
+    phase("decode", t, f"{len(pkts)} packets decode to their rec, and the "
+          f"{len(shown)} shown frames to the CLI's reconstruction")
+    del shown
 
     off_pkts, _, off_spans = encode_phase(rav1e_tpu_torch, clip[:4], False,
                                           "chain-off")
@@ -704,6 +1209,47 @@ def main() -> int:
     small = small_clip_phase(rav1e_tpu_torch, dev)
     phase("small-clip", t, small)
 
+    # the last three phases are independent: each runs whether or not the
+    # one before it failed, and any failure fails the run at the end
+    failed = []
+
+    import multiprocessing
+
+    # the gop phase's decode (a process per chunk) runs on while the capi
+    # and configs phases run
+    with multiprocessing.get_context("spawn").Pool(
+            GOP_FRAMES // GOP_LEN) as decoders:
+        t = time.monotonic()
+        gop = guarded("gop", failed,
+                      lambda: gop_phase(rav1e_tpu_torch, decoders))
+        if gop:
+            for line in gop[0]:
+                print("  " + line, flush=True)
+            phase("gop", t, "3 slots == the chunks encoded alone")
+
+        t = time.monotonic()
+        report = guarded("capi", failed, capi_phase)
+        if report:
+            phase("capi", t, report)
+
+        t = time.monotonic()
+        lines = guarded("configs", failed,
+                        lambda: configs_phase(rav1e_tpu_torch, dev))
+        if lines:
+            for line in lines:
+                print("  " + line, flush=True)
+            phase("configs", t, "card == CPU for every configuration")
+
+        if gop:
+            t = time.monotonic()
+            report = guarded("gop-decode", failed,
+                             lambda: gop_decode_check(gop[2]))
+            if report:
+                phase("gop-decode", t, report)
+    if failed:
+        fail(f"phases failed: {failed}")
+    gop_launches = gop[1]
+
     # the PyTorch port imports nothing of the JAX package
     ref_mods = sorted(m for m in sys.modules
                       if m == "rav1e_tpu" or m.startswith("rav1e_tpu."))
@@ -720,7 +1266,11 @@ def main() -> int:
         s = ksum[name]
         out["kernels"].append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches[name], "max_abs_err": s["max_abs_err"],
+            "launches": launches[name],
+            "launches_by_phase": {"slice": launches[name],
+                                  "cli": cli_launches[name],
+                                  "gop": gop_launches[name]},
+            "max_abs_err": s["max_abs_err"],
             "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
             "library_ms": None, "shape": s["shape"],

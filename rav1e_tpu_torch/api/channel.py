@@ -8,10 +8,14 @@ chunks at keyframe boundaries, encoded by a worker pool, and reassembled
 in order (by_gop.rs:81-260).  Workers overlap where the native hot loops
 release the GIL; the same structure maps to per-chip GOP slots on a
 device mesh.
+
+In the PyTorch port, the GOP workers of a CUDA config share one card, each
+on a CUDA stream of its own (see ``_worker_stream``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 from typing import Iterator, List, Optional
@@ -142,6 +146,14 @@ def _new_by_gop_channel(config, slots: int):
             results_lock.notify_all()
 
     def worker():
+        # The native coder keeps its scratch thread_local; its per-process
+        # ME settings (g_me_method / g_me_range in native/enc.cc) are set
+        # from the config by every context, so they hold the same values in
+        # every worker of this channel.
+        with _worker_stream(config):
+            _work()
+
+    def _work():
         while True:
             item = chunk_q.get()
             if item is None:
@@ -193,3 +205,20 @@ def _new_by_gop_channel(config, slots: int):
         threading.Thread(target=worker, daemon=True).start()
     threading.Thread(target=reassembler, daemon=True).start()
     return FrameSender(in_q, template_ctx), PacketReceiver(out_q)
+
+
+def _worker_stream(config):
+    """On a CUDA device, a context that makes a new CUDA stream current in
+    the calling thread (the current stream is thread-local); nothing on the
+    CPU.  The kernels launch on ``torch.cuda.current_stream()``, and the
+    chain's pinned copies and its ready event are enqueued there too, so a
+    worker's device work stays on its stream.  No device tensor passes from
+    one worker to another: each builds its own context, and the shared
+    caches of device constants wait for their stream before they are
+    shared (``device.constants.device_cache``)."""
+    import torch
+
+    dev = torch.device(config.device)
+    if dev.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.stream(torch.cuda.Stream(dev))

@@ -7,7 +7,7 @@ single-device layout) selects how tiles are sharded across TPU chips.
 
 The PyTorch port's copy adds ``device``, the torch device of the device
 stage (``"cuda"`` unless the caller asks for ``"cpu"``), and ``validate()``
-also rejects the settings whose device code is not ported yet.
+also rejects ``mesh_shape``, whose device code is not ported yet.
 """
 
 from __future__ import annotations
@@ -113,16 +113,11 @@ class Config:
             if err is not None:
                 raise InvalidConfig(f"AV1 level violation: {err}")
         self._validate_device()
-        # settings whose device code is not ported yet
+        # the one setting whose device code is not ported yet
         if self.mesh_shape is not None:
             raise InvalidConfig(
                 "mesh_shape: the multi-device analysis mesh "
                 "(rav1e_tpu/parallel/mesh.py) is not ported to "
-                "rav1e_tpu_torch yet"
-            )
-        if self.parallel_gops > 1:
-            raise InvalidConfig(
-                "parallel_gops > 1: GOP-parallel encoding is not ported to "
                 "rav1e_tpu_torch yet"
             )
 

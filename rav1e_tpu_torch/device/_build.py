@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -30,6 +31,8 @@ NVCC_FLAGS = (
 NVCC_TIMEOUT_S = 900
 
 _lib = None
+# one build per process, whichever thread comes first
+_lock = threading.Lock()
 # nvcc's and ptxas's report of the last build in this process (registers,
 # shared memory and spills per kernel); empty when the cached library was
 # loaded
@@ -118,7 +121,11 @@ def _checked(cmd, returncode: int, output: str) -> str:
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     global _lib
-    if _lib is None:
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
         c = ctypes
         so = c.CDLL(str(build()))
         so.r1t_satd8.argtypes = [

@@ -18,7 +18,6 @@ them to the host.
 
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -33,6 +32,7 @@ from rav1e_tpu_torch.device.constants import (
     INTER_BITS,
     SIZE_LOG2S,
     SPLIT_BITS,
+    device_cache,
     dir_plan,
     filter_idx,
     ief_static,
@@ -58,7 +58,7 @@ _DIR_MODES = (
 # ---------------------------------------------------------------------------
 
 
-@functools.lru_cache(None)
+@device_cache
 def _filter_idx_t(L: int, num: int, device):
     mats, valid = filter_idx(L, num)
     return (tuple(torch.as_tensor(m, device=device) for m in mats),
@@ -101,7 +101,7 @@ def _upsample_edge_dev(buf, num_px: int, bd: int):
     return torch.cat([dup[:, 0:1], inter], dim=1)
 
 
-@functools.lru_cache(None)
+@device_cache
 def _dir_plan_t(s, p_angle, ua, ul, La, Ll, device):
     """dir_plan with its index / shift / mask arrays as tensors on device."""
 

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from rav1e_tpu_torch.device import dsp
+from rav1e_tpu_torch.device.constants import device_cache
 from rav1e_tpu_torch.tx import TxSize, TxType
 
 _I32 = torch.int32
@@ -275,7 +276,7 @@ def _chroma_tx_luts(xdec: int, ydec: int):
     return lut_w, lut_h
 
 
-@functools.lru_cache(None)
+@device_cache
 def _edge_static(pli: int, xdec: int, ydec: int, rows_p: int, cols_p: int,
                  vertical: bool, mi_rows: int, mi_cols: int, device):
     """The frame-independent index grids and tables of
@@ -415,7 +416,7 @@ def geom_for(vis_w, vis_h, mi_cols, mi_rows, bd, tx_split, has_bwd,
                      has_bwd2, tuple(buckets), tuple(sorted(sizes)))
 
 
-@functools.lru_cache(None)
+@device_cache
 def _clip_index(n: int, pad: int, limit: int, device):
     """clip(arange(n) - pad, 0, limit - 1) on ``device``."""
     return torch.clamp(torch.arange(n, device=device) - pad, 0, limit - 1)
@@ -449,7 +450,7 @@ def _up(a, k: int):
     return a.repeat_interleave(k, dim=0).repeat_interleave(k, dim=1)
 
 
-@functools.lru_cache(None)
+@device_cache
 def _field_index(ny: int, nx: int, s: int, ny16: int, nx16: int, device):
     iy = torch.clamp((torch.arange(ny, device=device) * s) // 16, max=ny16 - 1)
     ix = torch.clamp((torch.arange(nx, device=device) * s) // 16, max=nx16 - 1)
@@ -464,7 +465,7 @@ def _field_at(field, s: int, ny: int, nx: int):
     return field[iy, ix].reshape(ny * nx, 2)
 
 
-@functools.lru_cache(None)
+@device_cache
 def _positions(ny: int, nx: int, step: int, device):
     """(pos_y, pos_x): the raster top-left coordinates of an (ny, nx) grid
     of step-px cells, flattened, int32."""
@@ -692,7 +693,7 @@ def _chroma_stage(geom: ChainGeom):
     return fn
 
 
-@functools.lru_cache(None)
+@device_cache
 def _q_index(nyt: int, nxt: int, cell_px: int, block_origin: bool, device):
     """Per tx cell, the (row, col) of the 8px quantizer grid it samples."""
     iy = torch.arange(nyt, device=device)

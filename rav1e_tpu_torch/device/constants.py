@@ -188,6 +188,24 @@ def dct_basis(s: int):
 # --- tensors on a device -----------------------------------------------------
 
 
+def device_cache(fn):
+    """``functools.lru_cache`` for a function that makes tensors on the
+    device given as its last argument.  On a CUDA device its work is waited
+    for before the value is cached: GOP-parallel workers share these caches
+    from streams of their own (``api/channel.py``), and one worker's stream
+    must not read a tensor that another's has not written yet."""
+
+    @functools.lru_cache(None)
+    def cached(*args):
+        out = fn(*args)
+        dev = torch.device(args[-1])
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+        return out
+
+    return functools.wraps(fn)(cached)
+
+
 @dataclass(frozen=True)
 class Tables:
     """The port's constant tensors on one device."""
@@ -227,7 +245,7 @@ def from_reference(device) -> Tables:
     )
 
 
-@functools.lru_cache(None)
+@device_cache
 def on(device) -> Tables:
     """The cached :func:`from_reference` tables of one device."""
     return from_reference(device)

@@ -18,11 +18,10 @@ plain advanced indexing.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
+from rav1e_tpu_torch.device.constants import device_cache
 from rav1e_tpu_torch.ops.mc import SUBPEL_FILTERS
 from rav1e_tpu_torch.ops.transforms import (
     FWD_MAT_SHIFT,
@@ -59,7 +58,7 @@ def _filter_table(length: int, mode: int = 0) -> np.ndarray:
     return SUBPEL_FILTERS[idx]
 
 
-@functools.lru_cache(None)
+@device_cache
 def _filter_table_on(length: int, device) -> torch.Tensor:
     return torch.as_tensor(_filter_table(length), dtype=_I32, device=device)
 
@@ -162,7 +161,7 @@ def mc_avg(t1, t2, bd: int):
 # ---------------------------------------------------------------------------
 
 
-@functools.lru_cache(None)
+@device_cache
 def _fwd_mats_f64(tx_size: TxSize, tx_type: TxType, device):
     fv, fh = _fwd_matrices_int(tx_size, tx_type)  # exact-integer float64
     return (torch.as_tensor(fv, dtype=torch.float64, device=device),
@@ -197,7 +196,7 @@ def _per_block(q, device):
     return q[None] if q.dim() == 0 else q
 
 
-@functools.lru_cache(None)
+@device_cache
 def _index_on(arr_bytes: bytes, device) -> torch.Tensor:
     return torch.as_tensor(np.frombuffer(arr_bytes, dtype=np.int64).copy(),
                            device=device)

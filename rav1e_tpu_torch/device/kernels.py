@@ -20,25 +20,33 @@ kernel, and nowhere else.
 
 from __future__ import annotations
 
-import functools
+import threading
 
 import torch
 
 from rav1e_tpu_torch.device import _build
-from rav1e_tpu_torch.device.constants import ME_BLOCK, on as _tables
+from rav1e_tpu_torch.device.constants import ME_BLOCK, device_cache, on as _tables
 
-# kernel launches since the last reset_launches()
+# kernel launches since the last reset_launches(), counted under a lock:
+# GOP-parallel workers launch from several threads
 LAUNCHES = {"satd8": 0, "grid_search": 0}
+_launch_lock = threading.Lock()
 
 SATD_SIZES = (8, 16, 32, 64)  # block sides csrc/satd8.cu takes
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _launch_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
-def _require_cuda(name: str, *tensors) -> None:
+def _count(name: str) -> None:
+    with _launch_lock:
+        LAUNCHES[name] += 1
+
+
+def _check_tensors(name: str, *tensors) -> None:
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
@@ -47,6 +55,9 @@ def _require_cuda(name: str, *tensors) -> None:
             raise TypeError(f"{name}: expects int32 tensors, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expects contiguous tensors")
+
+
+def _require_cuda(name: str, dev) -> None:
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
 
@@ -69,18 +80,25 @@ def satd8_plain(diff: torch.Tensor) -> torch.Tensor:
     return cells.sum(dim=(-1, -2))
 
 
-def satd8(diff: torch.Tensor) -> torch.Tensor:
-    """(..., s, s) int32 diffs -> (...) f32 SATD summed over the 8x8
-    Hadamard cells (ops/dist get_satd normalisation)."""
-    if diff.device.type == "cpu":
-        return satd8_plain(diff)
-    _require_cuda("satd8", diff)
-    *lead, sh, sw = diff.shape
+def check_satd8_inputs(diff: torch.Tensor) -> None:
+    """Raise unless ``diff`` is what csrc/satd8.cu reads, on any device."""
+    _check_tensors("satd8", diff)
+    *_lead, sh, sw = diff.shape
     if sh != sw or sh not in SATD_SIZES:
         raise ValueError(f"satd8: block side must be one of {SATD_SIZES}, "
                          f"got {sh}x{sw}")
     if diff.data_ptr() % 16:
         raise ValueError("satd8: diff must be 16-byte aligned")
+
+
+def satd8(diff: torch.Tensor) -> torch.Tensor:
+    """(..., s, s) int32 diffs -> (...) f32 SATD summed over the 8x8
+    Hadamard cells (ops/dist get_satd normalisation)."""
+    if diff.device.type == "cpu":
+        return satd8_plain(diff)
+    _require_cuda("satd8", diff.device)
+    check_satd8_inputs(diff)
+    *lead, sh, _sw = diff.shape
     out = torch.empty(lead, dtype=torch.float32, device=diff.device)
     n = out.numel()
     if n == 0:
@@ -90,7 +108,7 @@ def satd8(diff: torch.Tensor) -> torch.Tensor:
         torch.cuda.current_stream(diff.device).cuda_stream,
     )
     _build.check(code, "satd8")
-    LAUNCHES["satd8"] += 1
+    _count("satd8")
     return out
 
 
@@ -123,7 +141,7 @@ def gather_windows(ref_pad, ty, tx, W):
     return ref_pad[wy, wx]
 
 
-@functools.lru_cache(None)
+@device_cache
 def _grid_tie(R: int, device):
     side = 2 * R + 1
     return torch.tensor(
@@ -183,7 +201,31 @@ def grid_search(src_blocks, ref_pad, base_y, base_x, seeds, blk: int, R: int,
         return grid_search_plain(src_blocks, ref_pad, base_y, base_x, seeds,
                                  blk, R, step, pad_off, clip_mv)
     seeds = list(seeds)
-    _require_cuda("grid_search", src_blocks, ref_pad, base_y, base_x, *seeds)
+    _require_cuda("grid_search", src_blocks.device)
+    check_grid_search_inputs(src_blocks, ref_pad, base_y, base_x, seeds, blk,
+                             R, step, clip_mv)
+    n = src_blocks.shape[0]
+    out = torch.empty((n, 2), dtype=_I32, device=src_blocks.device)
+    if n == 0:
+        return out
+    code = _build.lib().r1t_grid_search(
+        src_blocks.data_ptr(), ref_pad.data_ptr(), base_y.data_ptr(),
+        base_x.data_ptr(), seeds[0].data_ptr(), seeds[-1].data_ptr(),
+        out.data_ptr(), n, ref_pad.shape[0], ref_pad.shape[1], len(seeds), R,
+        step, pad_off, clip_mv, src_blocks.device.index or 0,
+        torch.cuda.current_stream(src_blocks.device).cuda_stream,
+    )
+    _build.check(code, "grid_search")
+    _count("grid_search")
+    return out
+
+
+def check_grid_search_inputs(src_blocks, ref_pad, base_y, base_x, seeds,
+                             blk: int, R: int, step: int,
+                             clip_mv: int) -> None:
+    """Raise unless the arguments are what csrc/grid_search.cu reads, on any
+    device (``seeds`` a list)."""
+    _check_tensors("grid_search", src_blocks, ref_pad, base_y, base_x, *seeds)
     n = src_blocks.shape[0]
     W = blk + 2 * R * step
     if blk != ME_BLOCK or tuple(src_blocks.shape) != (n, blk, blk):
@@ -206,16 +248,3 @@ def grid_search(src_blocks, ref_pad, base_y, base_x, seeds, blk: int, R: int,
                          " of shared memory")
     if src_blocks.data_ptr() % 16:
         raise ValueError("grid_search: source blocks must be 16-byte aligned")
-    out = torch.empty((n, 2), dtype=_I32, device=src_blocks.device)
-    if n == 0:
-        return out
-    code = _build.lib().r1t_grid_search(
-        src_blocks.data_ptr(), ref_pad.data_ptr(), base_y.data_ptr(),
-        base_x.data_ptr(), seeds[0].data_ptr(), seeds[-1].data_ptr(),
-        out.data_ptr(), n, ref_pad.shape[0], ref_pad.shape[1], len(seeds), R,
-        step, pad_off, clip_mv, src_blocks.device.index or 0,
-        torch.cuda.current_stream(src_blocks.device).cuda_stream,
-    )
-    _build.check(code, "grid_search")
-    LAUNCHES["grid_search"] += 1
-    return out

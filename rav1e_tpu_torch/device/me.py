@@ -15,8 +15,6 @@ offset (``torch.argmin`` returns the first minimum, as ``jnp.argmin`` does).
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from rav1e_tpu_torch.ops.mc import SUBPEL_FILTERS
@@ -30,6 +28,7 @@ from rav1e_tpu_torch.device.constants import (
     PAD_L1,
     PAD_L2,
     SUBPEL_OFFS,
+    device_cache,
     subpel_variants,
 )
 
@@ -66,9 +65,13 @@ def _grid_search(src_blocks, ref_pad, base_y, base_x, seeds, blk, R, step,
                  pad_off, clip_mv):
     """One full-pel candidate-grid round for every block at once, through
     the grid_search kernel (kernels.grid_search_plain says what it
-    computes).  Returns the updated (n, 2) int32 MVs."""
-    return kernels.grid_search(src_blocks, ref_pad, base_y, base_x, seeds,
-                               blk, R, step, pad_off, clip_mv)
+    computes).  Returns the updated (n, 2) int32 MVs.  The kernel reads
+    contiguous tensors: with one block row (a frame 64 pixels high) the
+    blocks and their origins are views."""
+    return kernels.grid_search(
+        src_blocks.contiguous(), ref_pad.contiguous(), base_y.contiguous(),
+        base_x.contiguous(), [sd.contiguous() for sd in seeds], blk, R, step,
+        pad_off, clip_mv)
 
 
 def _up2_mvs(mv, ny, nx):
@@ -86,7 +89,7 @@ def _hadamard16_satd(diff):
     return kernels.satd8(diff)
 
 
-@functools.lru_cache(None)
+@device_cache
 def _subpel_tables(device):
     pen = torch.tensor(
         [abs(oy) + abs(ox) for oy in SUBPEL_OFFS for ox in SUBPEL_OFFS],

@@ -2226,6 +2226,13 @@ class FramePipeline:
 
     def __init__(self, config):
         self.device = torch.device(config.device)
+        if self.device.type == "cuda":
+            # the device chain runs only with the native coder
+            # (_chain_applicable): on the card a failed build raises with
+            # g++'s output instead of falling back to the Python coders
+            from rav1e_tpu_torch import native as _native
+
+            _native.require_lib()
         self.config = config
         enc = config.enc
         self.seq = Sequence.from_config(enc)

@@ -3,7 +3,9 @@
 Builds the shared library from the repository's ``native/`` sources on
 first use (g++ -O3; cached under ``build/rav1e_tpu_torch/``).  Falls back
 cleanly: callers check ``available()`` and keep the pure-Python path when
-the toolchain is missing.
+the toolchain is missing.  A context on a CUDA device does not: it calls
+:func:`require_lib`, which raises with g++'s output, since the device chain
+runs only with the library and a quiet fallback would hide it.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import threading
 from pathlib import Path
 from typing import Optional
 
@@ -35,6 +38,12 @@ _LIB = _ROOT / "build" / "rav1e_tpu_torch" / "librav1e_tpu_ec.so"
 
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+# why the library is missing: g++'s output of a failed build, or the load
+# error; None while nothing failed
+_error: Optional[str] = None
+# one build and one binding per process, whichever thread comes first (a
+# thread that arrives meanwhile waits for its result)
+_lock = threading.RLock()
 
 
 _HASH = _LIB.with_suffix(".so.hash")
@@ -50,29 +59,49 @@ def _src_hash() -> str:
 
 
 def _build(digest: str) -> bool:
+    global _error
     # each process builds into its own file and renames it into place, so
     # concurrent test workers never load a half-written library
     tmp = _LIB.with_name(f"{_LIB.name}.{os.getpid()}.tmp")
+    cmd = (["g++", "-O3", "-march=native", "-shared", "-fPIC"]
+           + [str(s) for s in _SRCS] + ["-o", str(tmp)])
     try:
         _LIB.parent.mkdir(parents=True, exist_ok=True)
-        subprocess.run(
-            ["g++", "-O3", "-march=native", "-shared", "-fPIC"]
-            + [str(s) for s in _SRCS]
-            + ["-o", str(tmp)],
-            check=True,
-            capture_output=True,
-            timeout=300,
-        )
+        subprocess.run(cmd, check=True, capture_output=True, timeout=300)
         os.replace(tmp, _LIB)
         _HASH.write_text(digest)
         return True
-    except Exception:
+    except Exception as e:
         tmp.unlink(missing_ok=True)
+        out = getattr(e, "stderr", None) or b""
+        if isinstance(out, bytes):
+            out = out.decode(errors="replace")
+        _error = f"{' '.join(cmd)}\n{e}\n{out}"
         return False
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
-    global _lib, _tried
+    if _lib is not None:
+        return _lib
+    with _lock:
+        return _get_lib_locked()
+
+
+def require_lib() -> ctypes.CDLL:
+    """The library, or RuntimeError with the reason it is missing (g++'s
+    output when the build failed)."""
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError(
+            "rav1e_tpu_torch: the native host coder did not build or load, "
+            "and a context on a CUDA device needs it (the device chain runs "
+            f"only with it):\n{_error}"
+        )
+    return lib
+
+
+def _get_lib_locked() -> Optional[ctypes.CDLL]:
+    global _lib, _tried, _error
     if _lib is not None or _tried:
         return _lib
     _tried = True
@@ -100,9 +129,10 @@ def get_lib() -> Optional[ctypes.CDLL]:
     try:
         lib = ctypes.CDLL(str(_LIB))
         _bind_symbols(lib)
-    except (OSError, AttributeError):
+    except (OSError, AttributeError) as e:
         # missing symbol (stale binary that somehow passed the hash check)
         # or unloadable library: fall back to the pure-Python paths
+        _error = f"{_LIB}: {e}"
         return None
     _load_itx_programs(lib)
     _load_subpel_filters(lib)
@@ -394,17 +424,18 @@ def _fwd_static_args(tx_size, tx_type, lib):
     if tx_type == TxType.WHT_WHT:
         return None
     key = (int(tx_size), int(tx_type))
-    if key not in _fwd_registered:
-        from rav1e_tpu_torch.ops.transforms import _fwd_matrices_int
+    with _lock:
+        if key not in _fwd_registered:
+            from rav1e_tpu_torch.ops.transforms import _fwd_matrices_int
 
-        fv, fh = _fwd_matrices_int(tx_size, tx_type)
-        fv32 = np.ascontiguousarray(fv, dtype=np.int32)
-        fh32 = np.ascontiguousarray(fh, dtype=np.int32)
-        lib.enc_register_fwd(
-            key[0], key[1], fv32.ctypes.data, fv32.shape[0],
-            fh32.ctypes.data, fh32.shape[0],
-        )
-        _fwd_registered.add(key)
+            fv, fh = _fwd_matrices_int(tx_size, tx_type)
+            fv32 = np.ascontiguousarray(fv, dtype=np.int32)
+            fh32 = np.ascontiguousarray(fh, dtype=np.int32)
+            lib.enc_register_fwd(
+                key[0], key[1], fv32.ctypes.data, fv32.shape[0],
+                fh32.ctypes.data, fh32.shape[0],
+            )
+            _fwd_registered.add(key)
     w, h = tx_size.width, tx_size.height
     cw, ch = min(w, 32), min(h, 32)
     scan16 = _scan_u16(cw, ch, _scan_kind(tx_type))

@@ -108,6 +108,15 @@ _keepalive: list = []
 
 
 def _bind(lib) -> None:
+    if _bound:
+        return
+    # the registrations write the native coder's process-wide tables: one
+    # thread does them while the others wait (GOP-parallel workers)
+    with native._lock:
+        _bind_locked(lib)
+
+
+def _bind_locked(lib) -> None:
     global _bound
     if _bound:
         return

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from rav1e_tpu import tables
+from torch_threads import one_torch_cpu_thread  # noqa: F401
 
 H, W = 128, 192
 

@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_cpu_thread  # noqa: F401
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402

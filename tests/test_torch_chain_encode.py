@@ -12,6 +12,7 @@ import os
 
 import numpy as np
 import pytest
+from torch_threads import one_torch_cpu_thread  # noqa: F401
 
 pytest.importorskip("jax")
 
@@ -34,21 +35,10 @@ def encode(pkg, w, h, nframes, q=120, seed=7, **kw):
     )
     assert cfg.enc.speed_settings.device_chain
     ctx = cfg.new_context()
-    rng = np.random.default_rng(seed)
-    base = {}
-    for t in range(nframes):
+    for planes in clip_planes(w, h, nframes, seed):
         f = ctx.new_frame()
-        for i, p in enumerate(f.planes):
-            ch, cw = p.cfg.height, p.cfg.width
-            if i not in base:
-                coarse = rng.integers(
-                    0, 256, ((ch + 7) // 8 + 2, (cw + 7) // 8 + 4))
-                base[i] = np.repeat(
-                    np.repeat(coarse, 8, axis=0), 8, axis=1
-                ).astype(np.float64)
-            arr = base[i][:ch, t * 2 : t * 2 + cw]
-            noise = rng.integers(-2, 3, (ch, cw))
-            p.copy_from(np.clip(arr + noise, 0, 255).astype(np.uint8))
+        for p, arr in zip(f.planes, planes):
+            p.copy_from(arr)
         ctx.send_frame(f)
     ctx.flush()
     pkts = []
@@ -57,6 +47,29 @@ def encode(pkg, w, h, nframes, q=120, seed=7, **kw):
             pkts.append(ctx.receive_packet())
         except pkg.EncoderStatus.LimitReached:
             return pkts, ctx
+
+
+def clip_planes(w, h, nframes, seed=7):
+    """The clip of :func:`encode`: per frame, its (y, u, v) uint8 planes
+    (4:2:0)."""
+    rng = np.random.default_rng(seed)
+    base = {}
+    frames = []
+    for t in range(nframes):
+        planes = []
+        for i, (ch, cw) in enumerate(((h, w), ((h + 1) // 2, (w + 1) // 2),
+                                      ((h + 1) // 2, (w + 1) // 2))):
+            if i not in base:
+                coarse = rng.integers(
+                    0, 256, ((ch + 7) // 8 + 2, (cw + 7) // 8 + 4))
+                base[i] = np.repeat(
+                    np.repeat(coarse, 8, axis=0), 8, axis=1
+                ).astype(np.float64)
+            arr = base[i][:ch, t * 2 : t * 2 + cw]
+            noise = rng.integers(-2, 3, (ch, cw))
+            planes.append(np.clip(arr + noise, 0, 255).astype(np.uint8))
+        frames.append(planes)
+    return frames
 
 
 def reference_packets(w, h, nframes):

@@ -3,10 +3,11 @@ device chain off, and the default preset with the chain on, give the same
 packets as rav1e_tpu, byte for byte, and every packet decodes to its
 reconstruction (both at 192x128, so the reference's analysis compiles once
 in this module; more chain-on encodes are tests/test_torch_chain_encode.py's
-``slow`` tests).  Also: the port imports neither JAX nor
+``slow`` tests), and the two command-line encoders at speed 6 on the
+chain-on clip.  Also: the port imports neither JAX nor
 anything of rav1e_tpu, its constant tables equal the reference's, its Config
-runs on CUDA unless asked for the CPU, it accepts the device chain, and it
-refuses the settings that are not ported yet."""
+runs on CUDA unless asked for the CPU, it accepts the device chain and
+GOP-parallel slots, and it refuses the setting that is not ported yet."""
 
 import ast
 import os
@@ -21,9 +22,12 @@ import rav1e_tpu
 import rav1e_tpu_torch
 from rav1e_tpu.decoder import decode_packet
 from rav1e_tpu_torch.decoder import decode_packet as port_decode_packet
+from torch_threads import one_torch_cpu_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
-W, H, NFRAMES = 192, 128, 6
+# 4 frames, as the chain-on test: the two reference encodes then compile the
+# same analysis variants once (inter+bwd2 analysis is test_torch_analysis's)
+W, H, NFRAMES = 192, 128, 4
 
 
 def _config(pkg, **kw):
@@ -119,6 +123,48 @@ def test_chain_packets_match_reference(monkeypatch):
     check_chain_encode(want, got, ctx, spans, dispatches, need_bwd=False)
 
 
+def test_cli_chain_on_matches_reference(tmp_path, capsys, monkeypatch):
+    """``rav1e_tpu_torch.cli`` and ``rav1e_tpu.cli`` at speed 6 (chain on)
+    with the settings and the clip of test_chain_packets_match_reference,
+    whose reference compiles this reuses: equal IVF payloads and
+    reconstructions, and the port's inter frames went through the chain."""
+    from rav1e_tpu import cli as ref_cli
+    from rav1e_tpu.device import analysis as ana
+    from rav1e_tpu_torch import cli as port_cli
+    from rav1e_tpu_torch.io import read_ivf
+    from rav1e_tpu_torch.utils import trace
+    from test_torch_chain_encode import clip_planes
+
+    src = tmp_path / "in.y4m"
+    with open(src, "wb") as f:
+        f.write(f"YUV4MPEG2 W{W} H{H} F30:1 Ip A1:1 C420jpeg\n".encode())
+        for planes in clip_planes(W, H, 4):
+            f.write(b"FRAME\n" + b"".join(p.tobytes() for p in planes))
+    flags = ["-s", "6", "-q", "120", "-i", "0", "-I", "9999"]
+    out = {}
+    monkeypatch.setenv("RAV1E_TPU_NO_SHARD", "1")
+    ana._analysis_mesh.cache_clear()
+    monkeypatch.setattr(trace, "_enabled", True)
+    trace.reset()
+    try:
+        for name, main, extra in (("ref", ref_cli.main, []),
+                                  ("port", port_cli.main,
+                                   ["--device", "cpu"])):
+            ivf, rec = tmp_path / f"{name}.ivf", tmp_path / f"{name}.y4m"
+            assert main([str(src), "-o", str(ivf), "-r", str(rec), *flags,
+                         *extra]) == 0
+            with open(ivf, "rb") as f:
+                out[name] = ([d for _pts, d in read_ivf(f)],
+                             rec.read_bytes())
+        spans = trace.stage_summary()
+    finally:
+        trace.reset()
+        ana._analysis_mesh.cache_clear()
+    assert len(out["port"][0]) >= 4
+    assert out["port"] == out["ref"]
+    assert spans["chain_replay_code"]["count"] >= 1
+
+
 def _imports_of_rav1e_tpu(path):
     """(line, statement) of each import of rav1e_tpu or rav1e_tpu.* in a
     file, top level or inside a function."""
@@ -139,7 +185,8 @@ def _imports_of_rav1e_tpu(path):
 def _port_files():
     return (sorted((ROOT / "rav1e_tpu_torch").rglob("*.py"))
             + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_slice_profile.py",
-               ROOT / "tools" / "grid_search_bench.py"])
+               ROOT / "tools" / "grid_search_bench.py",
+               ROOT / "tools" / "gop_channel_profile.py"])
 
 
 def test_port_imports_nothing_of_rav1e_tpu():
@@ -148,6 +195,12 @@ def test_port_imports_nothing_of_rav1e_tpu():
     found = {str(f.relative_to(ROOT)): b for f in files
              if (b := _imports_of_rav1e_tpu(f))}
     assert found == {}
+    # the port's C shim embeds the interpreter and imports the port's glue
+    shim = (ROOT / "rav1e_tpu_torch" / "capi" / "capi.cc").read_text()
+    import re
+
+    assert re.findall(r'PyImport_ImportModule\("([\w.]+)"\)', shim) == [
+        "rav1e_tpu_torch.capi_glue"]
 
 
 def test_import_scan_catches_rav1e_tpu(tmp_path):
@@ -167,7 +220,10 @@ def test_import_scan_catches_rav1e_tpu(tmp_path):
         (3, "rav1e_tpu"), (5, "rav1e_tpu.ops"), (6, "rav1e_tpu.tables")]
 
 
-def test_port_never_imports_jax():
+def test_port_never_imports_jax(tmp_path):
+    """An encode and decode, the CLI, the GOP-parallel channel, the C API's
+    glue, the fuzzing, metrics and activity modules: after them neither JAX
+    nor rav1e_tpu is loaded."""
     code = (
         "import sys\n"
         "import numpy as np\n"
@@ -195,6 +251,29 @@ def test_port_never_imports_jax():
         "state = None\n"
         "for p in pkts:\n"
         "    dec, state = decode_packet(p.data, state)\n"
+        "from rav1e_tpu_torch import capi_glue, cli\n"
+        "from rav1e_tpu_torch.ops import activity\n"
+        "from rav1e_tpu_torch.utils import fuzzing, metrics\n"
+        "src = sys.argv[1] + '/in.y4m'\n"
+        "with open(src, 'wb') as f:\n"
+        "    f.write(b'YUV4MPEG2 W64 H48 F30:1 C420jpeg\\n')\n"
+        "    for t in range(2):\n"
+        "        f.write(b'FRAME\\n' + bytes([70 + t]) * (64 * 48 * 3 // 2))\n"
+        "assert cli.main([src, '-o', sys.argv[1] + '/o.ivf', '--metrics',"
+        " '--device', 'cpu']) == 0\n"
+        "cfg = r.Config(enc=r.EncoderConfig(width=48, height=48, "
+        "min_key_frame_interval=1, max_key_frame_interval=1), device='cpu',"
+        " parallel_gops=2)\n"
+        "sender, receiver = cfg.new_channel()\n"
+        "for t in range(2):\n"
+        "    f = sender.new_frame()\n"
+        "    for p in f.planes:\n"
+        "        p.copy_from(np.full((p.cfg.height, p.cfg.width), 50 + t,"
+        " np.uint8))\n"
+        "    sender.send(f)\n"
+        "sender.close()\n"
+        "assert len(list(receiver)) == 2\n"
+        "assert fuzzing.fuzz_construct_context(0, 'cpu') in (True, False)\n"
         "assert 'jax' not in sys.modules\n"
         "mods = [m for m in sys.modules\n"
         "        if m == 'rav1e_tpu' or m.startswith('rav1e_tpu.')]\n"
@@ -202,8 +281,9 @@ def test_port_never_imports_jax():
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=300)
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
 
@@ -281,6 +361,11 @@ def _assert_nested_equal(a, b):
         assert a == b
 
 
+# parallel_gops > 1 runs since GOP-parallel encoding was ported; its case
+# stays in this list, now one that is accepted
+ACCEPTED = {"parallel_gops"}
+
+
 @pytest.mark.parametrize(
     "field,value,match",
     [
@@ -306,6 +391,11 @@ def test_config_rejects_unported_settings(field, value, match, monkeypatch):
         cfg = _config(rav1e_tpu_torch, device="cpu")
     if value != "default":
         setattr(cfg, field, value)
+    if field in ACCEPTED:
+        sender, receiver = cfg.new_channel()
+        sender.close()
+        assert list(receiver) == []
+        return
     with pytest.raises(rav1e_tpu_torch.InvalidConfig, match=match):
         cfg.new_context()
 

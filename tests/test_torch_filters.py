@@ -12,6 +12,7 @@ import rav1e_tpu.ops.cdef as cdef_mod
 import rav1e_tpu_torch
 from rav1e_tpu.config import ChromaSampling
 from rav1e_tpu.frame import Frame
+from torch_threads import one_torch_cpu_thread  # noqa: F401
 
 
 class _Blocks:

@@ -16,6 +16,7 @@ import torch
 
 from rav1e_tpu.device import pallas_kernels as pk
 from rav1e_tpu_torch.device import _build, kernels
+from torch_threads import one_torch_cpu_thread  # noqa: F401
 
 
 def _jnp(a):
@@ -150,3 +151,138 @@ def test_build_failure_raises_and_leaves_nothing(monkeypatch, tmp_path):
         _build.build()
     assert "stand-in failure" in str(err.value)
     assert list(out.iterdir()) == []
+
+
+def _run_threads(fn, n=16):
+    """``fn`` in ``n`` threads at once with a short switch interval; their
+    results, after each thread has ended."""
+    import threading
+
+    out = [None] * n
+    start = threading.Barrier(n)
+
+    def body(i):
+        start.wait(timeout=60)
+        out[i] = fn()
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=body, args=(i,)) for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    return out
+
+
+def test_launch_counts_are_exact_across_threads():
+    """GOP-parallel workers count their launches from several threads: no
+    update is lost."""
+    kernels.reset_launches()
+
+    def launch_many():
+        for _ in range(2000):
+            kernels._count("satd8")
+            kernels._count("grid_search")
+
+    _run_threads(launch_many)
+    assert kernels.LAUNCHES == {"satd8": 32000, "grid_search": 32000}
+    kernels.reset_launches()
+
+
+def test_kernel_library_builds_once_across_threads(monkeypatch, tmp_path):
+    import time
+
+    calls = []
+
+    def slow_build():
+        calls.append(1)
+        time.sleep(0.2)
+        return tmp_path / "lib.so"
+
+    class FakeLib:
+        def __init__(self, path):
+            self.r1t_satd8 = self.r1t_grid_search = self.r1t_error_string = (
+                type("Fn", (), {})())
+
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "build", slow_build)
+    monkeypatch.setattr(_build.ctypes, "CDLL", FakeLib)
+    libs = _run_threads(_build.lib, n=8)
+    assert len(calls) == 1
+    assert all(lib is libs[0] for lib in libs)
+
+
+# a stand-in for g++: logs each call, then fails
+_FAKE_GXX = """\
+import os, sys, time
+with open(os.environ["GXX_LOG"], "a") as f:
+    f.write("call\\n")
+time.sleep(0.2)
+print("error: stand-in g++ failure", file=sys.stderr)
+sys.exit(1)
+"""
+
+
+@pytest.fixture
+def failing_gxx(monkeypatch, tmp_path):
+    """The port's native coder with no library yet and a g++ that fails;
+    returns the log of g++ calls."""
+    import os
+
+    from rav1e_tpu_torch import native
+
+    bindir = tmp_path / "bin"
+    bindir.mkdir()
+    exe = bindir / "g++"
+    exe.write_text(f"#!{sys.executable}\n{_FAKE_GXX}")
+    exe.chmod(0o755)
+    log = tmp_path / "gxx.log"
+    log.write_text("")
+    monkeypatch.setenv("GXX_LOG", str(log))
+    monkeypatch.setenv("PATH", f"{bindir}{os.pathsep}{os.environ['PATH']}")
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    monkeypatch.setattr(native, "_error", None)
+    monkeypatch.setattr(native, "_LIB", tmp_path / "librav1e_tpu_ec.so")
+    monkeypatch.setattr(native, "_HASH", tmp_path / "librav1e_tpu_ec.so.hash")
+    return log
+
+
+def test_native_build_failure_raises_on_cuda(failing_gxx):
+    """A context on a CUDA device needs the native coder (the device chain
+    runs only with it): a failed build raises with g++'s output instead of
+    falling back to the Python coders."""
+    import rav1e_tpu_torch as r
+    from rav1e_tpu_torch import native
+    from rav1e_tpu_torch.encoder.pipeline import FramePipeline
+
+    cfg = r.Config(enc=r.EncoderConfig(width=128, height=64),
+                   device="cuda")
+    with pytest.raises(RuntimeError, match="stand-in g\\+\\+ failure"):
+        FramePipeline(cfg)
+    with pytest.raises(RuntimeError, match="needs it"):
+        native.require_lib()
+    assert failing_gxx.read_text().count("call") == 1
+
+
+def test_native_build_failure_falls_back_on_cpu(failing_gxx, capsys):
+    """On the CPU device the reference's behaviour stays: a warning, the
+    Python coders, and no device chain."""
+    import rav1e_tpu_torch as r
+
+    cfg = r.Config(enc=r.EncoderConfig(width=128, height=64), device="cpu")
+    ctx = cfg.new_context()
+    assert not ctx.pipeline._chain_applicable()
+    assert "native library build FAILED" in capsys.readouterr().err
+
+
+def test_native_builds_once_across_threads(failing_gxx):
+    from rav1e_tpu_torch import native
+
+    assert _run_threads(native.get_lib, n=8) == [None] * 8
+    assert failing_gxx.read_text().count("call") == 1

@@ -11,6 +11,7 @@ import functools
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_cpu_thread  # noqa: F401
 
 H, W = 128, 192
 
@@ -167,3 +168,37 @@ def test_grid_search_ragged_blocks(rnd):
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a).astype(np.int32))
     _check_round((t(src), t(ref_pad), t(by), t(bx), [t(sd) for sd in seeds],
                   16, R, step, pad, clip))
+
+
+@pytest.mark.parametrize("w,h", [(96, 64), (136, 128)])
+def test_kernel_inputs_meet_the_cuda_contract(w, h, monkeypatch):
+    """What the analysis hands the two kernels is what the CUDA kernels read
+    (int32, contiguous, aligned, their shapes), checked here where the
+    wrappers take the plain versions.  With one block row (a frame 64
+    pixels high) the ME blocks and their origins are views, which the card
+    refused until me._grid_search made them contiguous."""
+    from rav1e_tpu import tables
+    from rav1e_tpu_torch.device import analysis, kernels
+
+    calls = {"satd8": 0, "grid_search": 0}
+    real_satd8, real_grid = kernels.satd8, kernels.grid_search
+
+    def satd8(diff):
+        kernels.check_satd8_inputs(diff)
+        calls["satd8"] += 1
+        return real_satd8(diff)
+
+    def grid_search(src, ref, by, bx, seeds, blk, R, step, pad_off, clip):
+        kernels.check_grid_search_inputs(src, ref, by, bx, list(seeds), blk,
+                                         R, step, clip)
+        calls["grid_search"] += 1
+        return real_grid(src, ref, by, bx, seeds, blk, R, step, pad_off, clip)
+
+    monkeypatch.setattr(kernels, "satd8", satd8)
+    monkeypatch.setattr(kernels, "grid_search", grid_search)
+    rng = np.random.default_rng(w)
+    f = [rng.integers(0, 256, (h, w)).astype(np.uint8) for _ in range(3)]
+    lam = 0.12 * (tables.ac_q(120, 0, 8) / 8.0) ** 2
+    analysis.analyze_frame(f[0], None, None, 120, lam, 8, device="cpu")
+    analysis.analyze_frame(f[1], f[0], f[2], 120, lam, 8, device="cpu")
+    assert calls["satd8"] > 0 and calls["grid_search"] > 0
