@@ -60,7 +60,15 @@ Phases, each printing one line with its time:
    processes) gives byte-identical packets at 10 and 12 bit, 4:2:2, 4:4:4,
    2x2 tiles, low latency, speeds 8, 9 and 10, and a ragged 200x136 clip;
    then 4 seeds of ``fuzz_encode_decode`` on the card; prints each
-   configuration's chain frames and kernel launches.
+   configuration's chain frames and kernel launches;
+13. mesh: ``make_mesh(4, devices=["cuda:0"] * 4)``, four slots of the card,
+   each band on a stream of its own: sharded_frame_analysis and
+   sharded_inter_analysis on a 1024x1920 frame pair equal the same calls
+   on 4 CPU slots (maps and MVs exactly, bits within 1e-5 relative); the
+   port's dryrun_multichip on the card's slots; a 4-frame 1080p chain-on
+   encode with the pipeline's analysis mesh set to the card's slots gives
+   the unsharded encode's packets, which decode; prints both encodes'
+   frames/s and kernel launches beside the card's name and power limit.
 
 The line before the last is the kernels' JSON summary, preceded by
 nvidia-smi's name and power limit; the last line is
@@ -1103,6 +1111,103 @@ def configs_phase(r, dev):
     return lines
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the analysis mesh, four slots of the card
+# ---------------------------------------------------------------------------
+
+MESH_SLOTS = 4
+MESH_FRAMES = 4
+MESH_BITS_RTOL = 1e-5  # card vs CPU: float32 sums in other orders
+
+
+def mesh_encode(r, clip, mesh):
+    """The slice's Config over ``clip`` with the analysis mesh swapped for
+    ``mesh`` (None: unsharded) for the encode's duration; returns the
+    packets, the kernels' launches, the seconds and the context."""
+    import torch
+
+    from rav1e_tpu_torch.device import analysis, kernels
+
+    orig = analysis._analysis_mesh
+    analysis._analysis_mesh = lambda device: mesh
+    try:
+        ctx = slice_config(r).new_context()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t = time.monotonic()
+        pkts = encode(ctx, clip, r)
+        torch.cuda.synchronize()
+        return pkts, dict(kernels.LAUNCHES), time.monotonic() - t, ctx
+    finally:
+        analysis._analysis_mesh = orig
+
+
+def mesh_phase(r, clip, info):
+    """The sharded analysis functions on MESH_SLOTS slots of cuda:0 against
+    the same calls on as many CPU slots, the port's dryrun_multichip on the
+    card's slots, and a chain-on 1080p encode with the pipeline's mesh set
+    to the card's slots against the same encode unsharded."""
+    from rav1e_tpu_torch import tables
+    from rav1e_tpu_torch.parallel import (
+        make_mesh,
+        sharded_frame_analysis,
+        sharded_inter_analysis,
+    )
+    from rav1e_tpu_torch.parallel.dryrun import dryrun_multichip
+    from rav1e_tpu_torch.parallel.mesh import ShardedPlane
+
+    lines = []
+    card = make_mesh(MESH_SLOTS, devices=["cuda:0"] * MESH_SLOTS)
+    cpu = make_mesh(MESH_SLOTS, devices=["cpu"] * MESH_SLOTS)
+    # a 1024x1920 frame pair: four 256-row bands
+    luma = clip[1][0][:1024].astype(np.int32)
+    ref = clip[0][0][:1024].astype(np.int32)
+    lam = 0.12 * (tables.ac_q(QUANTIZER, 0, 8) / 8.0) ** 2
+    for name, fn in (
+        ("intra", lambda m: sharded_frame_analysis(m, luma, QUANTIZER, lam)),
+        ("inter", lambda m: sharded_inter_analysis(m, luma, ref, QUANTIZER,
+                                                   lam)),
+    ):
+        t = time.monotonic()
+        got = fn(card)
+        card_s = time.monotonic() - t
+        want = fn(cpu)
+        for k, (a, b) in enumerate(zip(got[:-1], want[:-1])):
+            if not np.array_equal(a, b):
+                fail(f"mesh: sharded {name} output {k} differs card vs CPU "
+                     f"in {int((a != b).sum())} cells")
+        if abs(got[-1] - want[-1]) > MESH_BITS_RTOL * abs(want[-1]):
+            fail(f"mesh: sharded {name} bits {got[-1]} vs CPU {want[-1]}")
+        lines.append(f"sharded {name} 1024x1920 on {MESH_SLOTS} card slots "
+                     f"== {MESH_SLOTS} CPU slots (bits {got[-1]} vs "
+                     f"{want[-1]}); card {card_s:.3f} s")
+
+    t = time.monotonic()
+    dry = dryrun_multichip(MESH_SLOTS, devices=["cuda:0"] * MESH_SLOTS)
+    lines.append(f"dryrun_multichip on {MESH_SLOTS} card slots: "
+                 f"{len(dry['packets'])} packets equal unsharded; bits "
+                 f"{dry['bits']}; {time.monotonic() - t:.3f} s")
+
+    sub = clip[:MESH_FRAMES]
+    single, l1, s1, _ = mesh_encode(r, sub, None)
+    sharded, l4, s4, ctx = mesh_encode(r, sub, card)
+    if not any(isinstance(p, ShardedPlane)
+               for p in ctx.pipeline._dev_luma_cache.values()):
+        fail("mesh: the encode did not shard its analysis")
+    for name, k in l4.items():
+        if k <= 0:
+            fail(f"mesh: kernel {name} was not launched under the mesh")
+    if [p.data for p in sharded] != [p.data for p in single]:
+        fail("mesh: the sharded encode's packets differ from the unsharded")
+    verify_decode(sharded)
+    n = len(sub)
+    lines.append(f"{n}-frame {WIDTH}x{HEIGHT} chain-on encode, mesh of "
+                 f"{MESH_SLOTS} card slots: {n / s4:.4f} frames/s, launches "
+                 f"{l4}; unsharded: {n / s1:.4f} frames/s, launches {l1}; "
+                 f"{len(sharded)} packets equal and decode ({info})")
+    return lines, l4
+
+
 def guarded(name, failed, fn):
     """fn()'s result; on a failure (its message or traceback printed),
     None with ``name`` added to ``failed``."""
@@ -1246,9 +1351,19 @@ def main() -> int:
                              lambda: gop_decode_check(gop[2]))
             if report:
                 phase("gop-decode", t, report)
+
+    t = time.monotonic()
+    mesh = guarded("mesh", failed,
+                   lambda: mesh_phase(rav1e_tpu_torch, clip, info))
+    if mesh:
+        for line in mesh[0]:
+            print("  " + line, flush=True)
+        phase("mesh", t, f"{MESH_SLOTS} slots of the card == unsharded "
+              f"({info})")
     if failed:
         fail(f"phases failed: {failed}")
     gop_launches = gop[1]
+    mesh_launches = mesh[1]
 
     # the PyTorch port imports nothing of the JAX package
     ref_mods = sorted(m for m in sys.modules
@@ -1269,7 +1384,8 @@ def main() -> int:
             "launches": launches[name],
             "launches_by_phase": {"slice": launches[name],
                                   "cli": cli_launches[name],
-                                  "gop": gop_launches[name]},
+                                  "gop": gop_launches[name],
+                                  "mesh": mesh_launches[name]},
             "max_abs_err": s["max_abs_err"],
             "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],

@@ -2,12 +2,13 @@
 
 Counterpart of the reference's ``src/api/config/mod.rs`` (``Config`` builder,
 ``validate()``, ``new_context()``).  Where the reference configures a rayon
-thread pool, we configure the device mesh: ``with_mesh`` (or the default
-single-device layout) selects how tiles are sharded across TPU chips.
+thread pool, ``with_mesh`` names a device mesh (``mesh_shape``).  It is
+accepted and carried as ``rav1e_tpu`` carries it, and the pipeline does not
+read it: the analysis shards over every visible card on its own
+(``rav1e_tpu_torch.device.analysis._analysis_mesh``).
 
 The PyTorch port's copy adds ``device``, the torch device of the device
-stage (``"cuda"`` unless the caller asks for ``"cpu"``), and ``validate()``
-also rejects ``mesh_shape``, whose device code is not ported yet.
+stage (``"cuda"`` unless the caller asks for ``"cpu"``).
 """
 
 from __future__ import annotations
@@ -113,13 +114,6 @@ class Config:
             if err is not None:
                 raise InvalidConfig(f"AV1 level violation: {err}")
         self._validate_device()
-        # the one setting whose device code is not ported yet
-        if self.mesh_shape is not None:
-            raise InvalidConfig(
-                "mesh_shape: the multi-device analysis mesh "
-                "(rav1e_tpu/parallel/mesh.py) is not ported to "
-                "rav1e_tpu_torch yet"
-            )
 
     def _validate_device(self) -> None:
         import torch

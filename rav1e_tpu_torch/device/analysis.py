@@ -14,10 +14,17 @@ Counterpart of ``rav1e_tpu/device/analysis.py``.  One call per frame:
 PyTorch launches are asynchronous on a CUDA device: :func:`analyze_frame_async`
 returns tensors that may still be in flight, and :func:`analyze_finish` copies
 them to the host.
+
+When more than one card is visible, the frame's rows shard over all of them
+(:func:`_analysis_mesh`): each band of whole superblock rows is analysed on
+its card with a halo of the real rows around it, wide enough that its
+interior decisions are the whole-frame run's, so the packets do not change.
 """
 
 from __future__ import annotations
 
+import functools
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -39,6 +46,14 @@ from rav1e_tpu_torch.device.constants import (
 )
 from rav1e_tpu_torch.device.constants import on as _tables
 from rav1e_tpu_torch.device.me import me_field
+from rav1e_tpu_torch.parallel.mesh import (
+    ANALYSIS_HALO,
+    ShardedPlane,
+    band_rows,
+    make_mesh,
+    on_slot,
+    send_back,
+)
 
 _I32 = torch.int32
 _F32 = torch.float32
@@ -477,20 +492,48 @@ def _frame_analysis(luma, ref0, ref1, ref2, q, lam, bd: int, has_inter: bool,
     return size_map, mode_map, inter_map, bits_est, mv0, mv1, mv2, rate_map
 
 
-def upload_source_luma(luma_np: np.ndarray, device):
-    """Pad a visible source-luma plane to 64-multiples and put it on
-    ``device`` once.
+@functools.lru_cache(None)
+def _analysis_mesh(device):
+    """The production mesh of a context on ``device``: every visible card on
+    a 1-D ``tile`` axis when the context is on a card and more than one is
+    visible, else None.  ``RAV1E_TPU_NO_SHARD=1`` opts out.  Multi-card is
+    automatic, as in the reference: each frame's analysis then runs by row
+    bands over the cards, and the decisions, and therefore the packets, are
+    the single-card run's."""
+    if (os.environ.get("RAV1E_TPU_NO_SHARD")
+            or torch.device(device).type != "cuda"
+            or torch.cuda.device_count() <= 1):
+        return None
+    return make_mesh()
 
-    The result is usable as any plane input of :func:`analyze_frame_async`,
-    so a frame that is its own analysis subject and later the reference of
-    up to 3 future frames crosses to the device once."""
+
+def _pad64(luma_np):
     h, w = luma_np.shape
     h64 = (h + 63) & ~63
     w64 = (w + 63) & ~63
     arr = np.pad(luma_np, ((0, h64 - h), (0, w64 - w)), mode="edge")
     if arr.dtype != np.uint8:
         arr = arr.astype(np.int32)  # 10/12-bit planes: widen on the host
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    return np.ascontiguousarray(arr)
+
+
+def upload_source_luma(luma_np: np.ndarray, device):
+    """Pad a visible source-luma plane to 64-multiples and put it on
+    ``device`` once.
+
+    The result is usable as any plane input of :func:`analyze_frame_async`,
+    so a frame that is its own analysis subject and later the reference of
+    up to 3 future frames crosses to the device once.  Under the analysis
+    mesh it is a :class:`ShardedPlane`, each band on its own device (on the
+    mesh's first device when the frame does not split)."""
+    arr = _pad64(luma_np)
+    mesh = _analysis_mesh(device)
+    if mesh is None:
+        return torch.from_numpy(arr).to(device)
+    rows = band_rows(arr.shape[0], mesh.size)
+    if rows is None:
+        return torch.from_numpy(arr).to(mesh.devices[0])
+    return ShardedPlane.put(mesh, rows, arr)
 
 
 def analyze_frame_async(luma_np, ref0_np, ref1_np, qindex: int, lam: float,
@@ -500,17 +543,35 @@ def analyze_frame_async(luma_np, ref0_np, ref1_np, qindex: int, lam: float,
 
     luma_np / ref0_np / ref1_np / ref2_np: (H, W) visible-luma numpy arrays
     (refs are the source planes of the forward / near-backward /
-    far-backward references), or planes already on ``device`` from
-    :func:`upload_source_luma`.  Returns a handle for :func:`analyze_finish`.
+    far-backward references), or planes already on the device from
+    :func:`upload_source_luma`.  Under the analysis mesh the planes shard
+    by rows and each band runs on its slot (:func:`_mesh_frame_analysis`).
+    Returns a handle for :func:`analyze_finish`.
     """
     device = torch.device(device)
+    mesh = _analysis_mesh(device)
+    rows = None
+    if mesh is not None:
+        # a frame that does not split is analysed whole on the first slot
+        device = mesh.devices[0]
+        rows = band_rows(_padded_shape(luma_np)[0], mesh.size)
 
     def prep(p):
+        if isinstance(p, ShardedPlane):
+            if rows is None or p.rows != rows or p.mesh is not mesh:
+                raise ValueError("plane sharded over another mesh than the "
+                                 "analysis's")
+            return p
         if isinstance(p, torch.Tensor):
+            if rows is not None:
+                raise ValueError(f"plane on {p.device}, analysis sharded "
+                                 "over a mesh")
             if p.device.type != device.type:
                 raise ValueError(f"plane on {p.device}, analysis on {device}")
             return p.to(_I32)
-        return upload_source_luma(p, device).to(_I32)
+        if rows is not None:
+            return ShardedPlane.put(mesh, rows, _pad64(p))
+        return torch.from_numpy(_pad64(p)).to(device).to(_I32)
 
     luma = prep(luma_np)
     has_inter = ref0_np is not None
@@ -520,16 +581,66 @@ def analyze_frame_async(luma_np, ref0_np, ref1_np, qindex: int, lam: float,
     ref1 = prep(ref1_np) if has_bwd else ref0
     ref2 = prep(ref2_np) if has_bwd2 else ref0
     for r in (ref0, ref1, ref2):
-        if r.shape != luma.shape:
+        if tuple(r.shape) != tuple(luma.shape):
             raise ValueError(f"plane shapes {tuple(r.shape)} and "
                              f"{tuple(luma.shape)} differ")
+    flags = (has_inter, has_bwd, has_bwd2)
+    if rows is not None:
+        out = _mesh_frame_analysis(mesh, rows, (luma, ref0, ref1, ref2),
+                                   qindex, lam, bd, flags)
+        return out, *flags
+    q, lam_t = _scalars(qindex, lam, bd, device)
+    out = _frame_analysis(luma, ref0, ref1, ref2, q, lam_t, bd, *flags)
+    return out[:7], *flags
 
-    q = torch.tensor(float(tables.ac_q(qindex, 0, bd)), dtype=_F32,
-                     device=device)
-    lam_t = torch.tensor(lam, dtype=_F32, device=device)
-    out = _frame_analysis(luma, ref0, ref1, ref2, q, lam_t, bd, has_inter,
-                          has_bwd, has_bwd2)
-    return out[:7], has_inter, has_bwd, has_bwd2
+
+def _padded_shape(p):
+    if isinstance(p, (torch.Tensor, ShardedPlane)):
+        return tuple(p.shape)
+    h, w = p.shape
+    return ((h + 63) & ~63, (w + 63) & ~63)
+
+
+def _scalars(qindex: int, lam: float, bd: int, device):
+    q = float(tables.ac_q(qindex, 0, bd))
+    return (torch.tensor(q, dtype=_F32, device=device),
+            torch.tensor(lam, dtype=_F32, device=device))
+
+
+def _mesh_frame_analysis(mesh, rows, planes, qindex, lam, bd, flags):
+    """The frame analysis by row bands over the mesh's slots.
+
+    Each band takes its superblock rows plus up to ``ANALYSIS_HALO`` real
+    rows on each side (none past the frame's edge, so the pyramid's edge
+    padding replicates the rows the whole-frame run replicates), runs
+    :func:`_frame_analysis` on its slot and keeps its interior.  The maps,
+    MV fields and rate maps gather onto the first slot; the rate map is
+    summed there whole, in the order of the unsharded run, so ``bits_est``
+    is the unsharded value too."""
+    h = rows[-1][1]
+    dev0 = mesh.devices[0]
+    parts = []
+    for i, (lo, hi) in enumerate(rows):
+        top = min(ANALYSIS_HALO, lo)
+        bot = min(ANALYSIS_HALO, h - hi)
+        ext = {}
+        for p in planes:
+            if id(p) not in ext:
+                ext[id(p)] = p.window(i, lo - top, hi + bot)
+        with on_slot(mesh, i):
+            bands = [ext[id(p)].to(_I32) for p in planes]
+            q, lam_t = _scalars(qindex, lam, bd, mesh.devices[i])
+            size_map, mode_map, inter_map, _b, mv0, mv1, mv2, rate_map = \
+                _frame_analysis(*bands, q, lam_t, bd, *flags)
+            c, nc = top // 8, (hi - lo) // 8
+            m, nm = top // 16, (hi - lo) // 16
+            interior = [t[c : c + nc] for t in (size_map, mode_map,
+                                                inter_map, rate_map)]
+            interior += [t[m : m + nm] for t in (mv0, mv1, mv2)]
+        parts.append([send_back(t, mesh, i, dev0) for t in interior])
+    size_map, mode_map, inter_map, rate_map, mv0, mv1, mv2 = (
+        torch.cat([pt[k] for pt in parts]) for k in range(7))
+    return size_map, mode_map, inter_map, rate_map.sum(), mv0, mv1, mv2
 
 
 def analyze_finish(handle) -> DeviceMaps:

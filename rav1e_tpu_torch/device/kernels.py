@@ -13,9 +13,11 @@ Counterpart of ``rav1e_tpu/device/pallas_kernels.py``:
   alone.
 
 A wrapper dispatches on the device of the tensor it is given: a CPU tensor
-takes the plain version, a CUDA tensor launches the kernel or raises.  Each
-wrapper adds one to its count in :data:`LAUNCHES` where it launches its
-kernel, and nowhere else.
+takes the plain version, a CUDA tensor launches the kernel or raises.  A
+launch goes to the tensors' own card, on that card's current stream (a
+mesh slot's stream, under :mod:`rav1e_tpu_torch.parallel`), and the
+wrappers refuse tensors on different devices.  Each wrapper adds one to its
+count in :data:`LAUNCHES` where it launches its kernel, and nowhere else.
 """
 
 from __future__ import annotations
@@ -103,10 +105,11 @@ def satd8(diff: torch.Tensor) -> torch.Tensor:
     n = out.numel()
     if n == 0:
         return out
-    code = _build.lib().r1t_satd8(
-        diff.data_ptr(), out.data_ptr(), n, sh, diff.device.index or 0,
-        torch.cuda.current_stream(diff.device).cuda_stream,
-    )
+    with torch.cuda.device(diff.device):
+        code = _build.lib().r1t_satd8(
+            diff.data_ptr(), out.data_ptr(), n, sh, diff.device.index,
+            torch.cuda.current_stream(diff.device).cuda_stream,
+        )
     _build.check(code, "satd8")
     _count("satd8")
     return out
@@ -208,13 +211,14 @@ def grid_search(src_blocks, ref_pad, base_y, base_x, seeds, blk: int, R: int,
     out = torch.empty((n, 2), dtype=_I32, device=src_blocks.device)
     if n == 0:
         return out
-    code = _build.lib().r1t_grid_search(
-        src_blocks.data_ptr(), ref_pad.data_ptr(), base_y.data_ptr(),
-        base_x.data_ptr(), seeds[0].data_ptr(), seeds[-1].data_ptr(),
-        out.data_ptr(), n, ref_pad.shape[0], ref_pad.shape[1], len(seeds), R,
-        step, pad_off, clip_mv, src_blocks.device.index or 0,
-        torch.cuda.current_stream(src_blocks.device).cuda_stream,
-    )
+    with torch.cuda.device(src_blocks.device):
+        code = _build.lib().r1t_grid_search(
+            src_blocks.data_ptr(), ref_pad.data_ptr(), base_y.data_ptr(),
+            base_x.data_ptr(), seeds[0].data_ptr(), seeds[-1].data_ptr(),
+            out.data_ptr(), n, ref_pad.shape[0], ref_pad.shape[1], len(seeds),
+            R, step, pad_off, clip_mv, src_blocks.device.index,
+            torch.cuda.current_stream(src_blocks.device).cuda_stream,
+        )
     _build.check(code, "grid_search")
     _count("grid_search")
     return out

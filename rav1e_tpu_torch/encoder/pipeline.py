@@ -45,6 +45,7 @@ from rav1e_tpu_torch.device import (
     cdef_device_frame,
     upload_source_luma,
 )
+from rav1e_tpu_torch.device import analysis as _analysis
 from rav1e_tpu_torch.ec import WriterEncoder
 from rav1e_tpu_torch.encoder.obu import (
     FrameHeaderInfo,
@@ -2263,7 +2264,8 @@ class FramePipeline:
         # input_frameno -> device-resident padded source luma: each frame
         # crosses the host->device wire once, then serves as the analysis
         # subject AND as the reference plane of up to 3 future analyses
-        # (insertion-ordered; oldest evicted)
+        # (insertion-ordered; oldest evicted).  Under the analysis mesh an
+        # entry holds the frame's row bands, each on its own slot.
         self._dev_luma_cache: dict = {}
         # input_frameno of the source occupying each reference slot (for
         # validating prefetched analyses against the slots' actual content)
@@ -2627,10 +2629,13 @@ class FramePipeline:
 
         src_p = _chain.host_src_planes(frame, enc.width, enc.height)
         # the luma is already on the device for this frame's analysis (same
-        # ceil-64 edge-padded extent); reuse it so only chroma goes up here
-        dev_y = self._dev_luma_cache.get(fno)
-        if dev_y is not None and tuple(dev_y.shape) == src_p[0].shape:
-            src_p[0] = dev_y
+        # ceil-64 edge-padded extent); reuse it so only chroma goes up here.
+        # Not under a live analysis mesh: there it is sharded by rows over
+        # the mesh's slots, and the chain runs on the context's device.
+        if _analysis._analysis_mesh(self.device) is None:
+            dev_y = self._dev_luma_cache.get(fno)
+            if dev_y is not None and tuple(dev_y.shape) == src_p[0].shape:
+                src_p[0] = dev_y
         with span("chain_dispatch", frame=fno, has_bwd=has_bwd,
                   has_bwd2=has_bwd2):
             handle = _chain.dispatch_chain(

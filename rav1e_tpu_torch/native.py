@@ -10,7 +10,9 @@ runs only with the library and a quiet fallback would hide it.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import subprocess
 import threading
@@ -66,10 +68,11 @@ def _build(digest: str) -> bool:
     cmd = (["g++", "-O3", "-march=native", "-shared", "-fPIC"]
            + [str(s) for s in _SRCS] + ["-o", str(tmp)])
     try:
-        _LIB.parent.mkdir(parents=True, exist_ok=True)
         subprocess.run(cmd, check=True, capture_output=True, timeout=300)
         os.replace(tmp, _LIB)
-        _HASH.write_text(digest)
+        hash_tmp = _HASH.with_name(f"{_HASH.name}.{os.getpid()}.tmp")
+        hash_tmp.write_text(digest)
+        os.replace(hash_tmp, _HASH)
         return True
     except Exception as e:
         tmp.unlink(missing_ok=True)
@@ -78,6 +81,24 @@ def _build(digest: str) -> bool:
             out = out.decode(errors="replace")
         _error = f"{' '.join(cmd)}\n{e}\n{out}"
         return False
+
+
+@contextlib.contextmanager
+def _build_lock():
+    """Hold a lock on a file beside the library: processes that start
+    together (test workers, GOP-parallel encoders) build it one at a time,
+    and the later ones find it built.  Where the directory cannot be
+    written there is nothing to lock, and the build's own error is
+    reported."""
+    try:
+        _LIB.parent.mkdir(parents=True, exist_ok=True)
+        f = open(_LIB.with_name(f"{_LIB.name}.lock"), "w")
+    except OSError:
+        yield
+        return
+    with f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        yield
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
@@ -109,12 +130,14 @@ def _get_lib_locked() -> Optional[ctypes.CDLL]:
     # git checkout, and a stale binary built on another microarchitecture
     # (-march=native) must never be loaded.
     digest = _src_hash()
-    stale = (
-        not _LIB.exists()
-        or not _HASH.exists()
-        or _HASH.read_text().strip() != digest
-    )
-    if stale and not _build(digest):
+    with _build_lock():
+        stale = (
+            not _LIB.exists()
+            or not _HASH.exists()
+            or _HASH.read_text().strip() != digest
+        )
+        built = not stale or _build(digest)
+    if not built:
         import sys
 
         print(

@@ -16,9 +16,13 @@ from torch_threads import one_torch_cpu_thread  # noqa: F401
 
 pytest.importorskip("jax")
 
+import native_libs  # noqa: E402
 import rav1e_tpu  # noqa: E402
 import rav1e_tpu_torch  # noqa: E402
 from rav1e_tpu_torch.decoder import decode_packet  # noqa: E402
+
+# before any test runs: see tests/native_libs.py
+native_libs.build()
 
 
 def encode(pkg, w, h, nframes, q=120, seed=7, **kw):

@@ -6,8 +6,9 @@ in this module; more chain-on encodes are tests/test_torch_chain_encode.py's
 ``slow`` tests), and the two command-line encoders at speed 6 on the
 chain-on clip.  Also: the port imports neither JAX nor
 anything of rav1e_tpu, its constant tables equal the reference's, its Config
-runs on CUDA unless asked for the CPU, it accepts the device chain and
-GOP-parallel slots, and it refuses the setting that is not ported yet."""
+runs on CUDA unless asked for the CPU, it accepts the device chain,
+GOP-parallel slots and a mesh shape, and it refuses devices it cannot run
+on."""
 
 import ast
 import os
@@ -18,11 +19,15 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import native_libs
 import rav1e_tpu
 import rav1e_tpu_torch
 from rav1e_tpu.decoder import decode_packet
 from rav1e_tpu_torch.decoder import decode_packet as port_decode_packet
 from torch_threads import one_torch_cpu_thread  # noqa: F401
+
+# before any test runs: see tests/native_libs.py
+native_libs.build()
 
 ROOT = Path(__file__).resolve().parent.parent
 # 4 frames, as the chain-on test: the two reference encodes then compile the
@@ -112,6 +117,7 @@ def test_slice_packets_match_reference(monkeypatch):
 def test_chain_packets_match_reference(monkeypatch):
     """The default preset (device chain on), 4 frames: three chain frames,
     two of them predispatched."""
+    native_libs.require()
     from test_torch_chain_encode import (
         check_chain_encode,
         port_run,
@@ -135,6 +141,7 @@ def test_cli_chain_on_matches_reference(tmp_path, capsys, monkeypatch):
     from rav1e_tpu_torch.utils import trace
     from test_torch_chain_encode import clip_planes
 
+    native_libs.require()
     src = tmp_path / "in.y4m"
     with open(src, "wb") as f:
         f.write(f"YUV4MPEG2 W{W} H{H} F30:1 Ip A1:1 C420jpeg\n".encode())
@@ -186,12 +193,15 @@ def _port_files():
     return (sorted((ROOT / "rav1e_tpu_torch").rglob("*.py"))
             + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_slice_profile.py",
                ROOT / "tools" / "grid_search_bench.py",
-               ROOT / "tools" / "gop_channel_profile.py"])
+               ROOT / "tools" / "gop_channel_profile.py",
+               ROOT / "tools" / "mesh_profile.py"])
 
 
 def test_port_imports_nothing_of_rav1e_tpu():
     files = _port_files()
     assert len(files) > 40
+    assert ROOT / "rav1e_tpu_torch" / "parallel" / "mesh.py" in files
+    assert ROOT / "rav1e_tpu_torch" / "parallel" / "dryrun.py" in files
     found = {str(f.relative_to(ROOT)): b for f in files
              if (b := _imports_of_rav1e_tpu(f))}
     assert found == {}
@@ -222,8 +232,8 @@ def test_import_scan_catches_rav1e_tpu(tmp_path):
 
 def test_port_never_imports_jax(tmp_path):
     """An encode and decode, the CLI, the GOP-parallel channel, the C API's
-    glue, the fuzzing, metrics and activity modules: after them neither JAX
-    nor rav1e_tpu is loaded."""
+    glue, the fuzzing, metrics and activity modules and a sharded analysis:
+    after them neither JAX nor rav1e_tpu is loaded."""
     code = (
         "import sys\n"
         "import numpy as np\n"
@@ -274,6 +284,12 @@ def test_port_never_imports_jax(tmp_path):
         "sender.close()\n"
         "assert len(list(receiver)) == 2\n"
         "assert fuzzing.fuzz_construct_context(0, 'cpu') in (True, False)\n"
+        "from rav1e_tpu_torch.parallel import make_mesh, "
+        "sharded_frame_analysis\n"
+        "mesh = make_mesh(2, devices=['cpu'] * 2)\n"
+        "out = sharded_frame_analysis(mesh, np.full((128, 64), 90), 120, "
+        "30.0)\n"
+        "assert out[0].shape == (16, 8) and out[3] > 0\n"
         "assert 'jax' not in sys.modules\n"
         "mods = [m for m in sys.modules\n"
         "        if m == 'rav1e_tpu' or m.startswith('rav1e_tpu.')]\n"
@@ -361,9 +377,10 @@ def _assert_nested_equal(a, b):
         assert a == b
 
 
-# parallel_gops > 1 runs since GOP-parallel encoding was ported; its case
-# stays in this list, now one that is accepted
-ACCEPTED = {"parallel_gops"}
+# parallel_gops > 1 runs since GOP-parallel encoding was ported, and
+# mesh_shape is carried since the mesh was; their cases stay in this list,
+# now ones that are accepted
+ACCEPTED = {"parallel_gops", "mesh_shape"}
 
 
 @pytest.mark.parametrize(
@@ -392,6 +409,8 @@ def test_config_rejects_unported_settings(field, value, match, monkeypatch):
     if value != "default":
         setattr(cfg, field, value)
     if field in ACCEPTED:
+        cfg.new_context()
+        assert getattr(cfg, field) == value
         sender, receiver = cfg.new_channel()
         sender.close()
         assert list(receiver) == []
