@@ -12,7 +12,8 @@ Phases, each printing one line with its time:
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, exactly equal, at the encoder's 1080p shapes plus a ragged
    batch and 12-bit magnitudes, with both timed by CUDA events: satd8 at
-   the intra and subpel shapes, grid_search at the four full-pel rounds
+   the intra and subpel shapes and at 12-bit diffs whose 64x64 block sums
+   reach their bound (4096 * 4095), grid_search at the four full-pel rounds
    that me_field runs on two frames of the clip, on a flat plane (every key
    ties within a seed) and at a ragged n = 37;
 4. slice: a 16-frame 1080p 8-bit 4:2:0 encode through the default
@@ -57,18 +58,29 @@ Phases, each printing one line with its time:
    with g++ and the Python embed flags, run with "cuda" and with "cpu":
    the packet lines must be identical;
 12. configs: a 256x128 6-frame clip on the card and on the CPU (in worker
-   processes) gives byte-identical packets at 10 and 12 bit, 4:2:2, 4:4:4,
-   2x2 tiles, low latency, speeds 8, 9 and 10, and a ragged 200x136 clip;
-   then 4 seeds of ``fuzz_encode_decode`` on the card; prints each
+   processes) gives byte-identical packets at reference_cells.py's ten
+   configurations (10 and 12 bit, 4:2:2, 4:4:4, 2x2 tiles, low latency,
+   speeds 8, 9 and 10, and a ragged clip, here 200x136); then its 4 fuzz
+   seeds through ``fuzz_encode_decode`` on the card; prints each
    configuration's chain frames and kernel launches;
-13. mesh: ``make_mesh(4, devices=["cuda:0"] * 4)``, four slots of the card,
+13. reference: every cell of reference_cells.py, the
+   640x384 16-frame bench clip included, encoded on the card with the
+   kernels on gives rav1e_tpu's packets byte for byte (their hashes in
+   tests/data/torch_reference_packets.json, made by
+   tools/torch_reference_packets.py), and every packet decodes to its
+   reconstruction; prints per cell the packets, the chain frames and the
+   kernel launches; a differing cell is encoded on the CPU too, to say
+   whether the card or the port differs;
+14. mesh: ``make_mesh(4, devices=["cuda:0"] * 4)``, four slots of the card,
    each band on a stream of its own: sharded_frame_analysis and
    sharded_inter_analysis on a 1024x1920 frame pair equal the same calls
    on 4 CPU slots (maps and MVs exactly, bits within 1e-5 relative); the
    port's dryrun_multichip on the card's slots; a 4-frame 1080p chain-on
    encode with the pipeline's analysis mesh set to the card's slots gives
    the unsharded encode's packets, which decode; prints both encodes'
-   frames/s and kernel launches beside the card's name and power limit.
+   frames/s and kernel launches beside the card's name and power limit;
+15. bench: ``python3 bench_torch.py`` (bench.py's workload through the
+   port on the card) in a subprocess; prints its JSON line.
 
 The line before the last is the kernels' JSON summary, preceded by
 nvidia-smi's name and power limit; the last line is
@@ -90,6 +102,8 @@ import tempfile
 import time
 
 import numpy as np
+
+import reference_cells
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WIDTH, HEIGHT, NFRAMES, QUANTIZER = 1920, 1080, 16, 120
@@ -193,6 +207,24 @@ def grid_search_bound(args):
     return nbytes, ops
 
 
+def satd_bound_diffs(n, m, g):
+    """(n, 13, 64, 64) int32 diffs at the bound of satd8's block sum: each
+    8x8 cell is +-m * (-1)^popcount(x & y), whose Hadamard transform has all
+    64 coefficients of magnitude 8m, so each cell scores 64m and each 64x64
+    block 4096m, at 12 bits 16,773,120 < 2^24 (tests/test_torch_kernels.py
+    holds the same diffs on the CPU)."""
+    import torch
+
+    x = torch.arange(8, device=g.device)
+    b = x[:, None] & x[None, :]
+    odd = (b ^ (b >> 1) ^ (b >> 2)) & 1
+    cell = m * (1 - 2 * odd).to(torch.int32)
+    sign = torch.randint(0, 2, (n, 13, 8, 8), generator=g, device=g.device,
+                         dtype=torch.int32) * 2 - 1
+    d = sign[..., :, None, :, None] * cell[:, None, :]
+    return d.reshape(n, 13, 64, 64).contiguous()
+
+
 def kernel_phase(dev, luma0, luma1):
     import torch
 
@@ -217,6 +249,7 @@ def kernel_phase(dev, luma0, luma1):
         ("ragged 37x13x32x32", (37, 13, 32, 32), 255),
         ("12-bit 4097x8x8", (4097, 8, 8), 4095),
         ("12-bit 1031x16x16", (1031, 16, 16), 4095),
+        ("12-bit bound 510x13x64x64", (510, 13, 64, 64), None),
     ]
     # grid_search cases: me_field's four rounds on two frames of the clip
     # (1080p, 64-padded to 1088x1920), the same rounds on a flat plane with
@@ -245,7 +278,8 @@ def kernel_phase(dev, luma0, luma1):
 
     rows = []
     for label, shape, mag in satd_cases:
-        d = ints(-mag, mag + 1, shape)
+        d = (ints(-mag, mag + 1, shape) if mag is not None
+             else satd_bound_diffs(shape[0], 4095, g))
         got = kernels.satd8(d)
         want = kernels.satd8_plain(d)
         torch.cuda.synchronize()
@@ -253,6 +287,8 @@ def kernel_phase(dev, luma0, luma1):
                else float("inf"))
         if err != 0:
             fail(f"satd8 {label}: kernel != plain (max abs err {err})")
+        if mag is None and not bool((got == 4096 * 4095).all()):
+            fail(f"satd8 {label}: a block is not at the bound 4096 * 4095")
         ms = cuda_ms(lambda: kernels.satd8(d), 20)
         pms = cuda_ms(lambda: kernels.satd8_plain(d), 5)
         cells = d.numel() // 64
@@ -292,32 +328,10 @@ def kernel_phase(dev, luma0, luma1):
 
 
 def synth_clip(w, h, n, rng, xdec=1, ydec=1, bd=8):
-    """bench.py's seeded synthetic pan: a blurred coarse texture panning 2 px
-    a frame, with per-frame noise; per-plane uint8 arrays (uint16 scaled to
-    ``bd`` above 8 bits), chroma decimated by ``xdec``/``ydec``."""
-    scene = {}
-    frames = []
-    cw_, ch_ = (w + xdec) >> xdec, (h + ydec) >> ydec
-    for t in range(n):
-        planes = []
-        for i, (ch, cw) in enumerate(((h, w), (ch_, cw_), (ch_, cw_))):
-            if i not in scene:
-                coarse = rng.integers(0, 256, ((ch + 7) // 8 + 1,
-                                               (cw + 7) // 8 + 1))
-                up = np.repeat(np.repeat(coarse, 8, axis=0), 8,
-                               axis=1).astype(np.float64)
-                k = np.ones(9) / 9.0
-                up = np.apply_along_axis(lambda r: np.convolve(r, k, "same"),
-                                         1, up)
-                up = np.apply_along_axis(lambda c: np.convolve(c, k, "same"),
-                                         0, up)
-                scene[i] = up[:ch, :cw]
-            arr = np.roll(scene[i], t * 2, axis=1)
-            noise = rng.integers(-2, 3, (ch, cw))
-            px = np.clip(arr + noise, 0, 255).astype(np.uint8)
-            planes.append(px.astype(np.uint16) << (bd - 8) if bd > 8 else px)
-        frames.append(planes)
-    return frames
+    """bench.py's seeded synthetic pan (reference_cells.pan_runs): per frame
+    its planes, uint8 (uint16 scaled to ``bd`` above 8 bits), chroma
+    decimated by ``xdec``/``ydec``."""
+    return reference_cells.pan_runs(w, h, [n], rng, xdec, ydec, bd)[0]
 
 
 def slice_config(rav1e_tpu_torch, device=None, width=WIDTH, height=HEIGHT,
@@ -1026,23 +1040,17 @@ def gop_decode_check(decoded):
 # phase 12: the other bit depths, chroma formats, tilings and presets
 # ---------------------------------------------------------------------------
 
-CONFIGS = (
-    # label, EncoderConfig fields, speed
-    ("10-bit 4:2:0 s6", {"bit_depth": 10}, 6),
-    ("12-bit 4:2:0 s6", {"bit_depth": 12}, 6),
-    ("8-bit 4:2:2 s6", {"chroma_sampling": "Cs422"}, 6),
-    ("8-bit 4:4:4 s6", {"chroma_sampling": "Cs444"}, 6),
-    ("2x2 tiles s6", {"tile_cols": 2, "tile_rows": 2}, 6),
-    ("low latency s6", {"low_latency": True}, 6),
-    ("speed 8", {}, 8),
-    ("speed 9", {}, 9),
-    ("speed 10", {}, 10),
-    ("ragged 200x136 s6", {"width": 200, "height": 136}, 6),
-)
+# reference_cells.py's ten configurations (10 and 12 bit, 4:2:2, 4:4:4,
+# 2x2 tiles, low latency, speeds 8, 9 and 10, a ragged clip), here at
+# 256x128 (the ragged one at 200x136) and 6 frames
+CONFIGS = tuple(n for n, c in reference_cells.CELLS.items()
+                if c["kind"] == "synth")
+CONFIG_SIZE = {"ragged 200x136 s6": (200, 136)}
 # the first four seeds whose random configuration reaches the device stages
 # (speed >= 6, both sides >= 64): 12-bit 4:4:4, 8-bit monochrome, 10-bit
-# 4:2:2 with two tile rows, and 8-bit 4:2:0 with the chain at 127x123
-FUZZ_SEEDS = (4, 5, 6, 10)
+# 4:2:2 with two tile rows, and 8-bit 4:2:0 at 127x123
+FUZZ_SEEDS = tuple(c["seed"] for c in reference_cells.CELLS.values()
+                   if c["kind"] == "fuzz")
 
 
 def config_case(r, i, device):
@@ -1051,19 +1059,12 @@ def config_case(r, i, device):
     from rav1e_tpu_torch.device import kernels
     from rav1e_tpu_torch.utils import trace
 
-    _label, fields, speed = CONFIGS[i]
-    kw = {"width": 256, "height": 128, **fields}
-    if "chroma_sampling" in kw:
-        kw["chroma_sampling"] = r.ChromaSampling[kw["chroma_sampling"]]
-    enc = r.EncoderConfig(
-        quantizer=QUANTIZER, speed_settings=r.SpeedSettings.from_preset(speed),
-        min_key_frame_interval=0, max_key_frame_interval=9999,
-        **{"low_latency": False, **kw})
+    cell = dict(reference_cells.CELLS[CONFIGS[i]])
+    w, h = CONFIG_SIZE.get(CONFIGS[i], (256, 128))
+    cell.update(width=w, height=h, frames=6)
+    enc = reference_cells.encoder_config(r, cell)
     ctx = r.Config(enc=enc, device=device).new_context()
-    xdec, ydec = enc.chroma_sampling.decimation()
-    clip = synth_clip(enc.width, enc.height, 6,
-                      np.random.default_rng(SEED + i), xdec, ydec,
-                      enc.bit_depth)
+    clip = reference_cells.clip(cell, enc)
     trace.trace_enable()
     trace.reset()
     kernels.reset_launches()
@@ -1096,7 +1097,7 @@ def configs_phase(r, dev):
         cpu = pool.map_async(_config_case_cpu, range(len(CONFIGS)))
         card = [config_case(r, i, dev) for i in range(len(CONFIGS))]
         cpu = cpu.get(timeout=900)
-    for (label, _f, _s), (pkts, chain, launches), (want, cchain) in zip(
+    for label, (pkts, chain, launches), (want, cchain) in zip(
             CONFIGS, card, cpu):
         if [p.data for p in pkts] != want:
             fail(f"configs {label}: card packets differ from the CPU's")
@@ -1112,7 +1113,86 @@ def configs_phase(r, dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 13: the analysis mesh, four slots of the card
+# phase 13: the card against rav1e_tpu's stored packets
+# ---------------------------------------------------------------------------
+
+STORE = os.path.join(ROOT, "tests", "data", "torch_reference_packets.json")
+
+
+def reference_phase(r, dev):
+    """Every cell of reference_cells.py, the 640x384 16-frame bench clip
+    included, encoded on the card with the kernels on: every packet's hash
+    equals rav1e_tpu's (the store made by tools/torch_reference_packets.py),
+    every packet decodes to its reconstruction through
+    rav1e_tpu_torch.decoder, the device analysis ran in every cell, the
+    chain in each cell where it runs, satd8 in every cell and grid_search
+    in each cell with inter frames, with rav1e_tpu's count of each stage
+    span.  Where a cell differs, the same cell
+    encoded on the CPU says whether the card or the port differs.  Returns
+    the report and the launches summed over the cells."""
+    from rav1e_tpu_torch.device import kernels
+
+    with open(STORE) as f:
+        store = json.load(f)["cells"]
+    missing = [n for n in reference_cells.CELLS if n not in store]
+    if missing:
+        fail(f"reference: the store has no packets for {missing}")
+    lines, bad, total = [], [], {}
+    for name, cell in reference_cells.CELLS.items():
+        want = store[name]
+        if want["settings"] != cell:
+            bad.append(f"{name}: the store was made for other settings")
+            continue
+        t = time.monotonic()
+        kernels.reset_launches()
+        pkts, _ctx, spans = reference_cells.encode_traced(r, name,
+                                                          device=dev)
+        launches = dict(kernels.LAUNCHES)
+        enc_s = time.monotonic() - t
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        got = [reference_cells.packet_record(p) for p in pkts]
+        err = reference_cells.first_difference(got, want["packets"])
+        if err:
+            cpu, _, _ = reference_cells.encode_traced(r, name, device="cpu")
+            cpu_err = reference_cells.first_difference(
+                [reference_cells.packet_record(p) for p in cpu],
+                want["packets"])
+            bad.append(f"{name}: {err}; on the CPU "
+                       + (f"the port differs too: {cpu_err}" if cpu_err
+                          else "the port gives rav1e_tpu's packets, so "
+                          "the card differs"))
+        t = time.monotonic()
+        dec_err = decode_mismatch(decode_triples(pkts))
+        if dec_err:
+            bad.append(f"{name}: {dec_err}")
+        inter = any(p["frame_type"] != "KEY" for p in want["packets"])
+        for k, need in (("satd8", True), ("grid_search", inter)):
+            if need and launches.get(k, 0) <= 0:
+                bad.append(f"{name}: kernel {k} was not launched")
+        if spans != want["spans"]:
+            bad.append(f"{name}: stage spans {spans}, rav1e_tpu's "
+                       f"{want['spans']}")
+        if spans["device_analysis"] < 1:
+            bad.append(f"{name}: no device analysis")
+        if cell["chain"] and spans["chain_replay_code"] < 1:
+            bad.append(f"{name}: no frame was coded by the chain")
+        lines.append(
+            f"{name:24s} {len(pkts)} packets "
+            f"{'== rav1e_tpu' if not err else 'DIFFER'}; chain frames "
+            f"{spans['chain_replay_code']} (overflow "
+            f"{spans['chain_overflow']}, diverged {spans['chain_diverged']}"
+            f"); launches {launches}; encode {enc_s:.3f} s, decode "
+            f"{time.monotonic() - t:.3f} s")
+    for line in lines:
+        print("  " + line, flush=True)
+    if bad:
+        fail("reference: " + "; ".join(bad))
+    return lines, total
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the analysis mesh, four slots of the card
 # ---------------------------------------------------------------------------
 
 MESH_SLOTS = 4
@@ -1206,6 +1286,21 @@ def mesh_phase(r, clip, info):
                  f"{l4}; unsharded: {n / s1:.4f} frames/s, launches {l1}; "
                  f"{len(sharded)} packets equal and decode ({info})")
     return lines, l4
+
+
+def bench_phase():
+    """``python3 bench_torch.py`` (bench.py's workload through the port on
+    the card) in a subprocess: its one JSON line."""
+    out = subprocess.run([sys.executable, os.path.join(ROOT, "bench_torch.py")],
+                         cwd=ROOT, env=subprocess_env(), capture_output=True,
+                         text=True, timeout=600)
+    if out.returncode != 0:
+        fail(f"bench: exit code {out.returncode}\n{out.stderr[-3000:]}")
+    line = out.stdout.strip().splitlines()[-1]
+    result = json.loads(line)
+    if not result.get("value", 0) > 0:
+        fail(f"bench: no throughput in {line}")
+    return line
 
 
 def guarded(name, failed, fn):
@@ -1345,6 +1440,13 @@ def main() -> int:
                 print("  " + line, flush=True)
             phase("configs", t, "card == CPU for every configuration")
 
+        t = time.monotonic()
+        ref = guarded("reference", failed,
+                      lambda: reference_phase(rav1e_tpu_torch, dev))
+        if ref:
+            phase("reference", t, f"{len(ref[0])} cells == rav1e_tpu's "
+                  "packets on the card, and decode")
+
         if gop:
             t = time.monotonic()
             report = guarded("gop-decode", failed,
@@ -1360,10 +1462,15 @@ def main() -> int:
             print("  " + line, flush=True)
         phase("mesh", t, f"{MESH_SLOTS} slots of the card == unsharded "
               f"({info})")
+    t = time.monotonic()
+    line = guarded("bench", failed, bench_phase)
+    if line:
+        phase("bench", t, f"bench_torch.py: {line} ({info})")
     if failed:
         fail(f"phases failed: {failed}")
     gop_launches = gop[1]
     mesh_launches = mesh[1]
+    ref_launches = ref[1]
 
     # the PyTorch port imports nothing of the JAX package
     ref_mods = sorted(m for m in sys.modules
@@ -1385,7 +1492,8 @@ def main() -> int:
             "launches_by_phase": {"slice": launches[name],
                                   "cli": cli_launches[name],
                                   "gop": gop_launches[name],
-                                  "mesh": mesh_launches[name]},
+                                  "mesh": mesh_launches[name],
+                                  "reference": ref_launches[name]},
             "max_abs_err": s["max_abs_err"],
             "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],

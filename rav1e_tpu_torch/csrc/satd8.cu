@@ -20,13 +20,16 @@
 // once.  No matmul: the TPU needed one to reach its matrix unit; here the
 // butterfly is cheaper and exact by construction.
 //
-// Exactness: integer throughout.  For |d| <= 4095 (12-bit) a cell's
-// coefficient sum stays below 2^24 and a 64x64 block's sum below 2^28, both
-// exact in int32.  The float result equals the reference's f32 path whenever
-// the block sum is below 2^24: every block at 8 bit, and blocks up to 16x16
-// at 12 bit.  Above that (64x64 blocks of high-bit-depth diffs) the
-// reference's f32 sum over cells can round; this kernel's exact integer sum
-// is then the better number, and the two can differ.
+// Exactness: integer throughout, and equal to the reference's f32 path at
+// every bit depth up to 12.  H8 is orthogonal up to a factor sqrt(8), so for
+// one 8x8 cell with |d| <= m, ||H d H^T||_F = 8 ||d||_F <= 64m, and by
+// Cauchy-Schwarz over its 64 coefficients sum |c| <= 512m: a cell scores at
+// most floor((512m + 4) / 8) = 64m, and a 64x64 block (64 cells) at most
+// 4096m, which at 12 bits (m = 4095) is 16,773,120 < 2^24.  The bound is
+// reached (a +-m pattern (-1)^popcount(x & y) has all 64 coefficients at
+// 8m).  So every partial sum is a non-negative integer below 2^24: the
+// reference's f32 sum over cells is exact in any order, and equals this
+// kernel's int32 sum.
 
 #include <cuda_runtime.h>
 

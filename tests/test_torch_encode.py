@@ -173,8 +173,8 @@ def test_cli_chain_on_matches_reference(tmp_path, capsys, monkeypatch):
 
 
 def _imports_of_rav1e_tpu(path):
-    """(line, statement) of each import of rav1e_tpu or rav1e_tpu.* in a
-    file, top level or inside a function."""
+    """(line, statement) of each import of rav1e_tpu or rav1e_tpu.*, and of
+    jax or jax.*, in a file, top level or inside a function."""
     bad = []
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
@@ -184,7 +184,8 @@ def _imports_of_rav1e_tpu(path):
         else:
             continue
         for name in names:
-            if name == "rav1e_tpu" or name.startswith("rav1e_tpu."):
+            if name in ("rav1e_tpu", "jax") or name.startswith(
+                    ("rav1e_tpu.", "jax.")):
                 bad.append((node.lineno, name))
     return bad
 
@@ -194,7 +195,10 @@ def _port_files():
             + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_slice_profile.py",
                ROOT / "tools" / "grid_search_bench.py",
                ROOT / "tools" / "gop_channel_profile.py",
-               ROOT / "tools" / "mesh_profile.py"])
+               ROOT / "tools" / "mesh_profile.py", ROOT / "bench_torch.py",
+               ROOT / "reference_cells.py",
+               ROOT / "tests" / "test_torch_reference_packets.py",
+               ROOT / "tests" / "test_torch_native_tile.py"])
 
 
 def test_port_imports_nothing_of_rav1e_tpu():
@@ -214,8 +218,9 @@ def test_port_imports_nothing_of_rav1e_tpu():
 
 
 def test_import_scan_catches_rav1e_tpu(tmp_path):
-    """The scan above matches the JAX package and its modules, lazy imports
-    included, and not the port's own name."""
+    """The scan above matches the JAX package, JAX and their modules, lazy
+    imports included, and not the port's own name nor a name that only
+    starts with "jax"."""
     f = tmp_path / "m.py"
     f.write_text(
         "import rav1e_tpu_torch\n"
@@ -225,9 +230,15 @@ def test_import_scan_catches_rav1e_tpu(tmp_path):
         "    from rav1e_tpu.ops import cdef\n"
         "    import rav1e_tpu.tables as t\n"
         "from . import sibling\n"
+        "import jaxtyping\n"
+        "def h():\n"
+        "    import jax\n"
+        "    from jax import numpy\n"
+        "    import jax.numpy as jnp\n"
     )
     assert _imports_of_rav1e_tpu(f) == [
-        (3, "rav1e_tpu"), (5, "rav1e_tpu.ops"), (6, "rav1e_tpu.tables")]
+        (3, "rav1e_tpu"), (5, "rav1e_tpu.ops"), (6, "rav1e_tpu.tables"),
+        (10, "jax"), (11, "jax"), (12, "jax.numpy")]
 
 
 def test_port_never_imports_jax(tmp_path):

@@ -143,3 +143,44 @@ def test_fuzz_encode_decode(seed):
     """Random valid configs encode on the CPU and every packet decodes to
     its reconstruction through the port's decoder."""
     assert fuzzing.fuzz_encode_decode(seed, "cpu") >= 1
+
+
+def _fields(obj):
+    """A config as plain values: dataclasses as dicts, enums as (class
+    name, value), so that each package's objects compare."""
+    import dataclasses
+    import enum
+
+    if dataclasses.is_dataclass(obj):
+        return {f.name: _fields(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    if isinstance(obj, enum.Enum):
+        return (type(obj).__name__, obj.value)
+    if isinstance(obj, (list, tuple)):
+        return [_fields(v) for v in obj]
+    return obj
+
+
+@pytest.mark.parametrize("seed", (4, 5, 6, 10))
+def test_fuzz_draws_match_reference(seed):
+    """The seeds of reference_cells.py's fuzz cells draw the same
+    EncoderConfig and the same frames through each package's
+    ``_rand_config``/``_rand_frames``: the stored packets of those cells
+    rest on it."""
+    from rav1e_tpu.utils import fuzzing as ref_fuzzing
+
+    rngs = [np.random.default_rng(seed) for _ in range(2)]
+    port = fuzzing._rand_config(rngs[0], valid=True, device="cpu")
+    ref = ref_fuzzing._rand_config(rngs[1], valid=True)
+    assert _fields(port.enc) == _fields(ref.enc)
+    n = [int(g.integers(1, 5)) for g in rngs]
+    assert n[0] == n[1]
+    frames = [list(mod._rand_frames(cfg.new_context(), g, n[0]))
+              for mod, cfg, g in ((fuzzing, port, rngs[0]),
+                                  (ref_fuzzing, ref, rngs[1]))]
+    assert len(frames[0]) == len(frames[1]) == n[0]
+    for a, b in zip(*frames):
+        assert len(a.planes) == len(b.planes)
+        for pa, pb in zip(a.planes, b.planes):
+            assert np.array_equal(pa.as_array(), pb.as_array())
+    assert rngs[0].bit_generator.state == rngs[1].bit_generator.state

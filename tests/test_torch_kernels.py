@@ -46,6 +46,53 @@ def test_satd8_matches_pallas(shape, mag):
     np.testing.assert_array_equal(got, want)
 
 
+def satd_bound_diffs(n, m, seed=0):
+    """(n, 13, 64, 64) int32 diffs at the bound of the SATD block sum: each
+    8x8 cell is +-m * (-1)^popcount(x & y), an inner-product bent pattern
+    whose Hadamard transform has all 64 coefficients of magnitude 8m, the
+    most Cauchy-Schwarz allows (sum |H d H^T| <= 8 * ||H d H^T||_F =
+    64 * 8 * ||d||_F <= 512m).  Each cell then scores floor((512m + 4) / 8)
+    = 64m and each 64x64 block 4096m, at 12 bits 16,773,120 < 2^24."""
+    pop = np.array([bin(v).count("1") for v in range(8)])
+    x = np.arange(8)
+    cell = m * (1 - 2 * (pop[x[:, None] & x[None, :]] & 1))
+    sign = np.random.default_rng(seed).choice([-1, 1], (n, 13, 8, 8))
+    d = sign[..., :, None, :, None] * cell[:, None, :]
+    return d.reshape(n, 13, 64, 64).astype(np.int32)
+
+
+def satd_exact(diff):
+    """The SATD block sums of (..., 64, 64) diffs in int64, exactly."""
+    h = np.array([[1]], np.int64)
+    for _ in range(3):
+        h = np.block([[h, h], [h, -h]])
+    *lead, s, _ = diff.shape
+    d = diff.astype(np.int64).reshape(*lead, s // 8, 8, s // 8, 8)
+    d = np.moveaxis(d, -2, -3)
+    cells = (np.abs(h @ d @ h.T).sum(axis=(-1, -2)) + 4) // 8
+    return cells.sum(axis=(-1, -2))
+
+
+@pytest.mark.parametrize("bd", [10, 12])
+def test_satd8_block_sum_at_its_bound_is_exact(bd):
+    """At the largest sum any diff of bd bits can give, the port's plain
+    version, the reference's satd8 and the exact integer sum agree: every
+    partial sum is an integer below 2^24, so float32 adds it exactly in any
+    order."""
+    import jax
+
+    from rav1e_tpu.device import analysis as ref_analysis
+
+    m = (1 << bd) - 1
+    diff = satd_bound_diffs(2, m)
+    exact = satd_exact(diff)
+    assert (exact == 4096 * m).all() and exact.max() < 1 << 24
+    got = kernels.satd8_plain(torch.from_numpy(diff)).numpy()
+    want = np.asarray(jax.jit(ref_analysis.satd8)(_jnp(diff)))
+    np.testing.assert_array_equal(got, exact.astype(np.float32))
+    np.testing.assert_array_equal(want, exact.astype(np.float32))
+
+
 @pytest.mark.parametrize("blk,R,step", [(16, 3, 2), (16, 2, 1), (16, 1, 1)])
 def test_sad_grid_matches_pallas(blk, R, step):
     rng = np.random.default_rng(1)
