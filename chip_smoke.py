@@ -21,8 +21,11 @@ Phases, each printing one line with its time:
    device reconstruction chain on, pyramid reordering); prints the frames
    the chain coded, its overflow and replay-divergence fallbacks and its
    predispatch hits; at least one inter frame is chain-coded, and both
-   kernels were launched by the encode; every packet decodes to its
-   reconstruction through rav1e_tpu_torch.decoder;
+   kernels were launched by the encode; prints the pipeline's chain graphs
+   (device/graphs.py: keys, captures, eager and replayed frames, the
+   pool's bytes) and fails unless every chain frame after its key's first
+   was five graph replays; every packet decodes to its reconstruction
+   through rav1e_tpu_torch.decoder;
 5. chain-off tier: the same preset with device_chain=False over the first
    4 frames (every frame through the host tile coder), with the same
    launch and decode checks;
@@ -30,8 +33,15 @@ Phases, each printing one line with its time:
    frame of the clip, on the card and on the CPU from identical inputs
    (maps, MV fields, packed aux, reference planes): every output exactly
    equal, plus the selection stage on all-zero MV fields, where candidates
-   tie; each stage timed by CUDA events, with its kernel launches and
-   device-busy time from torch.profiler;
+   tie; then through a ChainPrograms on the card, a frame of the same key
+   (clip frame 3 against 1, 5 and 9) captured and replayed and the first
+   frame replayed after it: all 15 stage outputs equal the eager stages'
+   after each run, the earlier run's copies are kept, and each run's host
+   time to enqueue is printed; each stage timed
+   by CUDA events eagerly and as a replay, with its host launches, kernels
+   and device-busy time from torch.profiler, and one whole dispatch +
+   fetch eager and replayed, whose steady state must make fewer than 100
+   host launches;
 7. analysis: the port's whole-frame analysis on the card against the same
    analysis on the CPU (plain versions) for a key, a forward-inter and a
    bidirectional frame: MV fields exactly equal, and every differing
@@ -62,14 +72,16 @@ Phases, each printing one line with its time:
    configurations (10 and 12 bit, 4:2:2, 4:4:4, 2x2 tiles, low latency,
    speeds 8, 9 and 10, and a ragged clip, here 200x136); then its 4 fuzz
    seeds through ``fuzz_encode_decode`` on the card; prints each
-   configuration's chain frames and kernel launches;
+   configuration's chain frames, chain graphs (keys, captures, replays;
+   every key eager only on its first frame) and kernel launches;
 13. reference: every cell of reference_cells.py, the
    640x384 16-frame bench clip included, encoded on the card with the
    kernels on gives rav1e_tpu's packets byte for byte (their hashes in
    tests/data/torch_reference_packets.json, made by
    tools/torch_reference_packets.py), and every packet decodes to its
-   reconstruction; prints per cell the packets, the chain frames and the
-   kernel launches; a differing cell is encoded on the CPU too, to say
+   reconstruction; prints per cell the packets, the chain frames, the
+   chain graphs (as in the configs phase) and the kernel launches; a
+   differing cell is encoded on the CPU too, to say
    whether the card or the port differs;
 14. mesh: ``make_mesh(4, devices=["cuda:0"] * 4)``, four slots of the card,
    each band on a stream of its own: sharded_frame_analysis and
@@ -414,7 +426,9 @@ def verify_decode(pkts, shown=None):
 def encode_phase(rav1e_tpu_torch, clip, chain, label):
     """Encode ``clip`` through the preset on the card with the kernels'
     launch counts set to 0 just before and read just after; returns the
-    packets, the launch counts and the stage spans."""
+    packets, the launch counts, the stage spans and the pipeline's chain
+    graph counts (``ChainPrograms.stats``), which must show every chain
+    frame after its key's first replayed."""
     import torch
 
     from rav1e_tpu_torch.device import kernels
@@ -447,11 +461,36 @@ def encode_phase(rav1e_tpu_torch, clip, chain, label):
     if ctx.pipeline.device.type != "cuda":
         fail(f"{label}: the default Config ran on {ctx.pipeline.device}, "
              "not the card")
-    return pkts, launches, spans
+    graphs = ctx.pipeline._chain_programs.stats()
+    frames = span_count(spans, "chain_dispatch")
+    print(f"  graphs: {frames} chain frames, {graphs['keys']} keys, "
+          f"{graphs['captured']} captured (5 graphs each), "
+          f"{graphs['eager']} eager frames, {graphs['replays']} replayed, "
+          f"pool {graphs['pool_bytes']} bytes", flush=True)
+    for has_bwd, has_bwd2, y, uv, eager, replays in graphs["by_key"]:
+        print(f"    key has_bwd={has_bwd} has_bwd2={has_bwd2} y_list={y} "
+              f"uv_list={uv}: {eager} eager, {replays} replayed", flush=True)
+    if (graphs["eager"] != graphs["keys"]
+            or graphs["eager"] + graphs["replays"] != frames):
+        fail(f"{label}: a chain frame after its key's first was not a "
+             f"replay ({frames} chain frames, {graphs})")
+    return pkts, launches, spans, graphs
 
 
 def span_count(spans, name):
     return spans[name]["count"] if name in spans else 0
+
+
+def graph_counts(ctx, chain_frames):
+    """The pipeline's chain graphs as a short report, and a fault when a
+    key ran eagerly more than once or fewer frames were dispatched than
+    ``chain_frames`` were coded by the chain."""
+    g = ctx.pipeline._chain_programs.stats()
+    report = (f"graphs: {g['keys']} keys, {g['captured']} captured, "
+              f"{g['replays']} replayed")
+    if g["eager"] != g["keys"] or g["eager"] + g["replays"] < chain_frames:
+        return report, f"chain graphs {g} for {chain_frames} chain frames"
+    return report, None
 
 
 # ---------------------------------------------------------------------------
@@ -459,14 +498,17 @@ def span_count(spans, name):
 # ---------------------------------------------------------------------------
 
 CHAIN_FRAMES = (2, 0, 4, 8)  # the coded frame, then its LAST, ALTREF, BWDREF
+# a second frame of the same key (geometry and CDEF lists), for the graphs
+CHAIN_FRAMES_B = (3, 1, 5, 9)
 
 
-def chain_case(clip, dev):
+def chain_case(clip, dev, frames_at=CHAIN_FRAMES):
     """Inputs of one bidirectional inter frame for the chain stages: clip
-    frame 2 against frames 0, 4 and 8 as its three references, with the
-    card's analysis maps at QUANTIZER, no segmentation, and the pipeline's
-    deblock levels and CDEF candidate lists.  All host numpy, so both
-    devices get the same inputs."""
+    frame 2 against frames 0, 4 and 8 as its three references (or the
+    frames ``frames_at`` names), with the card's analysis maps at
+    QUANTIZER, no segmentation, and the pipeline's deblock levels and CDEF
+    candidate lists.  All host numpy, so both devices get the same
+    inputs."""
     from rav1e_tpu_torch import tables
     from rav1e_tpu_torch.config import ChromaSampling
     from rav1e_tpu_torch.device import analysis, chain
@@ -478,14 +520,14 @@ def chain_case(clip, dev):
 
     qi, bd = QUANTIZER, 8
     frames = []
-    for i in CHAIN_FRAMES:
+    for i in frames_at:
         f = Frame.new(WIDTH, HEIGHT, ChromaSampling.Cs420, bd)
         for p, arr in zip(f.planes, clip[i]):
             p.copy_from(arr)
             p.pad()
         frames.append(f)
     q_step = tables.ac_q(qi, 0, bd) / 8.0
-    luma = [clip[i][0] for i in CHAIN_FRAMES]
+    luma = [clip[i][0] for i in frames_at]
     maps = analysis.analyze_frame(luma[0], luma[1], luma[2], qi,
                                   0.12 * q_step * q_step, bd,
                                   ref2_np=luma[3], device=dev)
@@ -505,6 +547,7 @@ def chain_case(clip, dev):
         *cdef_strengths_fast(tables.ac_q(qi, 0, bd) >> (bd - 8)))
     return {
         "geom": geom, "plan": plan, "y_list": y_list, "uv_list": uv_list,
+        "fields": fields, "dcq8": dcq8, "acq8": acq8, "dbl": dbl,
         "aux": chain.pack_aux(geom, plan, fields, dcq8, acq8, dbl, y_list,
                               uv_list),
         "src": chain.host_src_planes(frames[0], WIDTH, HEIGHT),
@@ -512,40 +555,34 @@ def chain_case(clip, dev):
     }
 
 
+def _device_refs(case, dev):
+    import torch
+
+    return tuple(tuple(torch.from_numpy(p).to(dev) for p in r)
+                 for r in case["refs"])
+
+
+STAGE_NAMES = ("select+luma MC", "chroma MC", "tx+quant+recon",
+               "deblock+CDEF", "pack")
+
+
 def chain_calls(case, dev, aux=None):
-    """The five stages as (name, call, output names), each call reading the
-    outputs of the stages before it from the dict returned with them."""
+    """The five stages (``chain.stage_calls``) run once on ``dev``: the dict
+    of their inputs and outputs by name, and the stages as (name, call,
+    output names), each call reading that dict."""
     import torch
 
     from rav1e_tpu_torch.device import chain
 
-    f = chain.chain_stages(case["geom"])
-    aux = torch.from_numpy(case["aux"] if aux is None else aux).to(dev)
-    src = tuple(torch.from_numpy(p).to(dev) for p in case["src"])
-    refs = tuple(tuple(torch.from_numpy(p).to(dev) for p in r)
-                 for r in case["refs"])
-    o = {}
-    calls = [
-        ("select+luma MC", lambda: f[0](src[0], tuple(r[0] for r in refs),
-                                        aux), ("pred_y", "sels")),
-        ("chroma MC", lambda: f[1](tuple(r[1] for r in refs),
-                                   tuple(r[2] for r in refs), aux, o["sels"]),
-         ("pred_u", "pred_v")),
-        ("tx+quant+recon", lambda: f[2](src, (o["pred_y"], o["pred_u"],
-                                              o["pred_v"]), aux),
-         ("levels_flat", "eob_ord", "overflow", "recons", "skip8", "tx8",
-          "bsize8")),
-        ("deblock+CDEF", lambda: f[3](o["recons"], src, o["skip8"], o["tx8"],
-                                      o["bsize8"], aux, case["y_list"],
-                                      case["uv_list"]),
-         ("ref_out", "cdef_idx")),
-        ("pack", lambda: f[4](o["overflow"], o["eob_ord"], o["sels"],
-                              o["cdef_idx"], o["levels_flat"]),
-         ("hdr", "levels")),
-    ]
-    for _name, call, keys in calls:
-        o.update(zip(keys, call()))
-    return o, calls
+    d = {"aux": torch.from_numpy(case["aux"] if aux is None else aux).to(dev),
+         "src": tuple(torch.from_numpy(p).to(dev) for p in case["src"]),
+         "refs": _device_refs(case, dev)}
+    calls = [(name, lambda c=c: c(d), names) for name, (names, c) in zip(
+        STAGE_NAMES, chain.stage_calls(case["geom"], case["y_list"],
+                                       case["uv_list"]))]
+    for _name, call, names in calls:
+        d.update(zip(names, call()))
+    return d, calls
 
 
 def _flat(v):
@@ -565,17 +602,29 @@ def chain_equal(got, want, keys):
     return bad
 
 
+# CUDA runtime and driver calls that enqueue work on the card
+HOST_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
+                     "cuGraphLaunch", "cudaMemcpy", "cuMemcpy", "cudaMemset",
+                     "cuMemset")
+
+
 def profile_call(call):
-    """(kernel launches, memcpy/memset count, device-busy ms) of one call."""
+    """(device kernels, device copies and memsets, host launches, device-busy
+    ms) of one call.  Host launches count the runtime calls that enqueue
+    work (kernel and graph launches, copies, memsets); a graph replay is one
+    host launch however many kernels it runs."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         call()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
     evs = [e for e in prof.events() if e.device_type == cuda]
+    host = sum(1 for e in prof.events() if e.device_type != cuda
+               and e.name.startswith(HOST_LAUNCH_CALLS))
     copies = sum(1 for e in evs if e.name.startswith(("Memcpy", "Memset")))
     busy, end = 0.0, None
     for s, e in sorted((e.time_range.start, e.time_range.end) for e in evs):
@@ -585,15 +634,75 @@ def profile_call(call):
         elif e > end:
             busy += e - end
             end = e
-    return len(evs) - copies, copies, busy / 1e3
+    return len(evs) - copies, copies, host, busy / 1e3
+
+
+def _dispatch(programs, case, refs):
+    from rav1e_tpu_torch.device import chain
+
+    return chain.dispatch_chain(
+        programs, case["geom"], case["plan"], case["src"], refs,
+        case["fields"], case["dcq8"], case["acq8"], case["dbl"],
+        case["y_list"], case["uv_list"])
+
+
+def chain_graph_check(case_a, case_b, eager_a, eager_b, keys, dev):
+    """Graph replay against the eager stages on the card, for one key:
+    frame A runs through a ChainPrograms as the key's first (eager) frame,
+    frame B then captures the five graphs and replays them, frame A replays
+    again.  After each run every stage output in the runner's static
+    buffers equals the eager stages' on the same inputs, and what run B
+    handed out (its reconstruction and levels copies) is still B's after
+    run A's replay.  Returns the runner, with its graphs captured, and each
+    run's host ms to enqueue (eager, capture + replay, replay)."""
+    import torch
+
+    from rav1e_tpu_torch.device.graphs import ChainPrograms
+
+    programs = ChainPrograms(dev)
+    g, yl, ul = case_a["geom"], case_a["y_list"], case_a["uv_list"]
+    if (case_b["geom"], case_b["y_list"], case_b["uv_list"]) != (g, yl, ul):
+        fail("chain graphs: the two frames are not of one key")
+    handed, host_ms = None, []
+    for i, (case, want) in enumerate(((case_a, eager_a), (case_b, eager_b),
+                                      (case_a, eager_a))):
+        refs = _device_refs(case, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref_out, _hdr, levels = programs.run(g, case["src"], refs,
+                                             case["aux"], yl, ul)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        k = programs.key(g, yl, ul)
+        bad = chain_equal(k.data, want, keys)
+        if bad:
+            fail(f"chain graphs, run {i + 1}: {bad} differ from the eager "
+                 "stages")
+        if i == 1:
+            handed = (ref_out, levels)
+    if chain_equal({"ref_out": handed[0], "levels": handed[1]}, eager_b,
+                   ("ref_out", "levels")):
+        fail("chain graphs: a replay changed the previous run's results")
+    st = programs.stats()
+    if (st["keys"], st["captured"], st["eager"], st["replays"]) != (1, 1, 1,
+                                                                    2):
+        fail(f"chain graphs: runner stats {st}, not one key, one eager "
+             "frame and two replays")
+    return programs, host_ms
 
 
 def chain_phase(clip, dev):
     """The five stages on the card and on the CPU from identical inputs:
     every output exactly equal (and on all-zero MV fields, where the
-    selection ties between candidates, the selection too); then each stage
-    on the card timed and profiled.  Returns the report lines."""
+    selection ties between candidates, the selection too); the card's
+    graph replays equal to its eager stages twice in a row
+    (:func:`chain_graph_check`); then each stage on the card timed and
+    profiled eagerly and as a replay, and one steady-state frame's host
+    launches counted.  Returns the report lines."""
+    import torch
+
     from rav1e_tpu_torch.device import chain
+    from rav1e_tpu_torch.device.graphs import ChainPrograms
 
     case = chain_case(clip, dev)
     g = case["geom"]
@@ -621,17 +730,58 @@ def chain_phase(clip, dev):
              f"{case['plan'].n_tx} tx blocks, "
              f"{int(got['eob_ord'][: g.ntx_cap].sum())} levels); tied "
              "selection equal"]
-    total = [0.0, 0, 0, 0.0]
-    for name, call, _keys in calls:
-        ms = cuda_ms(call, 5)
-        kern, copies, busy = profile_call(call)
-        lines.append(f"stage {name:16s} ms={ms:.3f} launches={kern} "
-                     f"copies={copies} device_busy_ms={busy:.3f}")
-        for i, v in enumerate((ms, kern, copies, busy)):
-            total[i] += v
-    lines.append(f"stage {'all five':16s} ms={total[0]:.3f} "
-                 f"launches={total[1]} copies={total[2]} "
-                 f"device_busy_ms={total[3]:.3f}")
+
+    case_b = chain_case(clip, dev, CHAIN_FRAMES_B)
+    got_b, _ = chain_calls(case_b, dev)
+    programs, host_ms = chain_graph_check(case, case_b, got, got_b, keys,
+                                          dev)
+    lines.append(f"graph replay == eager stages for all {len(keys)} outputs, "
+                 "twice in a row (frames "
+                 f"{CHAIN_FRAMES_B[0]} then {CHAIN_FRAMES[0]}), and the "
+                 "earlier run's copies kept")
+    lines.append("runner host ms to enqueue a frame: eager "
+                 f"{host_ms[0]:.3f}, capture + replay {host_ms[1]:.3f}, "
+                 f"replay {host_ms[2]:.3f}")
+
+    graphs = programs.key(g, case["y_list"], case["uv_list"]).graphs
+    total = {"eager": [0.0, 0, 0, 0.0], "replay": [0.0, 0, 0, 0.0]}
+    for (name, call, _keys), graph in zip(calls, graphs):
+        row = []
+        for how, fn in (("eager", call), ("replay", graph.replay)):
+            ms = cuda_ms(fn, 5)
+            kern, _copies, host, busy = profile_call(fn)
+            row.append(f"{how} ms={ms:.3f} host_launches={host} "
+                       f"kernels={kern} device_busy_ms={busy:.3f}")
+            for i, v in enumerate((ms, host, kern, busy)):
+                total[how][i] += v
+        lines.append(f"stage {name:16s} " + " | ".join(row))
+    lines.append(f"stage {'all five':16s} " + " | ".join(
+        f"{how} ms={t[0]:.3f} host_launches={t[1]} kernels={t[2]} "
+        f"device_busy_ms={t[3]:.3f}" for how, t in total.items()))
+
+    # one whole dispatch + fetch: a fresh runner's first (eager) frame
+    # against a steady-state replay of the captured runner
+    refs = _device_refs(case, dev)
+    frame = {}
+    for how, runner in (("eager", lambda: ChainPrograms(dev)),
+                        ("replay", lambda: programs)):
+        def one():
+            chain.fetch_chain(_dispatch(runner(), case, refs))
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        _kern, copies, host, busy = profile_call(one)
+        frame[how] = host
+        lines.append(f"frame dispatch+fetch, {how}: host_ms={host_ms:.3f} "
+                     f"(first call) host_launches={host} copies={copies} "
+                     f"device_busy_ms={busy:.3f} (profiled call)")
+    if not frame["eager"]:
+        fail("chain stages: the profiler recorded no host launch")
+    if frame["replay"] >= 100:
+        fail(f"chain stages: a steady-state frame made {frame['replay']} "
+             "host launches, not fewer than 100")
     return lines
 
 
@@ -1071,7 +1221,7 @@ def config_case(r, i, device):
     pkts = encode(ctx, clip, r)
     chain = span_count(trace.stage_summary(), "chain_replay_code")
     trace.reset()
-    return pkts, chain, dict(kernels.LAUNCHES)
+    return pkts, chain, dict(kernels.LAUNCHES), graph_counts(ctx, chain)
 
 
 def _config_case_cpu(i):
@@ -1080,7 +1230,7 @@ def _config_case_cpu(i):
     import rav1e_tpu_torch
 
     torch.set_num_threads(2)
-    pkts, chain, _ = config_case(rav1e_tpu_torch, i, "cpu")
+    pkts, chain, _, _ = config_case(rav1e_tpu_torch, i, "cpu")
     return [p.data for p in pkts], chain
 
 
@@ -1097,13 +1247,15 @@ def configs_phase(r, dev):
         cpu = pool.map_async(_config_case_cpu, range(len(CONFIGS)))
         card = [config_case(r, i, dev) for i in range(len(CONFIGS))]
         cpu = cpu.get(timeout=900)
-    for label, (pkts, chain, launches), (want, cchain) in zip(
+    for label, (pkts, chain, launches, (graphs, err)), (want, cchain) in zip(
             CONFIGS, card, cpu):
         if [p.data for p in pkts] != want:
             fail(f"configs {label}: card packets differ from the CPU's")
+        if err:
+            fail(f"configs {label}: {err}")
         lines.append(f"{label:18s} {len(pkts)} packets equal card vs CPU; "
-                     f"chain frames {chain} (CPU {cchain}); launches "
-                     f"{launches}")
+                     f"chain frames {chain} (CPU {cchain}); {graphs}; "
+                     f"launches {launches}")
     for seed in FUZZ_SEEDS:
         kernels.reset_launches()
         n = fuzzing.fuzz_encode_decode(seed, dev)
@@ -1145,9 +1297,13 @@ def reference_phase(r, dev):
             continue
         t = time.monotonic()
         kernels.reset_launches()
-        pkts, _ctx, spans = reference_cells.encode_traced(r, name,
-                                                          device=dev)
+        pkts, ctx, spans = reference_cells.encode_traced(r, name,
+                                                         device=dev)
         launches = dict(kernels.LAUNCHES)
+        graphs, graph_err = graph_counts(ctx, spans["chain_replay_code"])
+        del ctx
+        if graph_err:
+            bad.append(f"{name}: {graph_err}")
         enc_s = time.monotonic() - t
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
@@ -1182,7 +1338,7 @@ def reference_phase(r, dev):
             f"{'== rav1e_tpu' if not err else 'DIFFER'}; chain frames "
             f"{spans['chain_replay_code']} (overflow "
             f"{spans['chain_overflow']}, diverged {spans['chain_diverged']}"
-            f"); launches {launches}; encode {enc_s:.3f} s, decode "
+            f"); {graphs}; launches {launches}; encode {enc_s:.3f} s, decode "
             f"{time.monotonic() - t:.3f} s")
     for line in lines:
         print("  " + line, flush=True)
@@ -1362,7 +1518,8 @@ def main() -> int:
     ksum = kernel_phase(dev, clip[0][0], clip[1][0])
     phase("kernels", t, "kernel == plain at every shape")
 
-    pkts, launches, spans = encode_phase(rav1e_tpu_torch, clip, True, "slice")
+    pkts, launches, spans, _ = encode_phase(rav1e_tpu_torch, clip, True,
+                                            "slice")
     n_chain = span_count(spans, "chain_replay_code")
     print(f"  chain: {n_chain} frames coded by the chain, "
           f"{span_count(spans, 'chain_overflow')} overflow and "
@@ -1386,8 +1543,8 @@ def main() -> int:
           f"{len(shown)} shown frames to the CLI's reconstruction")
     del shown
 
-    off_pkts, _, off_spans = encode_phase(rav1e_tpu_torch, clip[:4], False,
-                                          "chain-off")
+    off_pkts, _, off_spans, _ = encode_phase(rav1e_tpu_torch, clip[:4],
+                                             False, "chain-off")
     if span_count(off_spans, "chain_dispatch"):
         fail("chain-off: the chain ran with device_chain=False")
     t = time.monotonic()

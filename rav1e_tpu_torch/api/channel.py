@@ -215,7 +215,10 @@ def _worker_stream(config):
     worker's device work stays on its stream.  No device tensor passes from
     one worker to another: each builds its own context, and the shared
     caches of device constants wait for their stream before they are
-    shared (``device.constants.device_cache``)."""
+    shared (``device.constants.device_cache``).  Each worker's pipeline
+    captures its chain graphs on a stream of its own in the thread-local
+    capture mode (``device.graphs``), so the other workers' pinned copies
+    and synchronizes go on during a capture."""
     import torch
 
     dev = torch.device(config.device)

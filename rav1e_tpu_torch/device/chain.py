@@ -17,9 +17,11 @@ shapes: no per-block control flow.  Cells the partition plan did not choose
 still compute and are masked out.  The host builders (plan, geometry, aux
 layout, decision derivation) are numpy copies of the reference's.
 
-Left out: the reference's split into five jitted programs
-(``chain_stages_jit``), which exists for XLA compile time;
-:func:`chain_stages` returns the five stage functions.
+The reference runs the stages as five jitted programs per geometry
+(``chain_stages_jit``).  Here :func:`chain_stages` returns the five stage
+functions, :func:`run_stages` runs them eagerly, and
+``device/graphs.ChainPrograms`` (which :func:`dispatch_chain` takes) runs
+them as five CUDA graphs per geometry and CDEF candidate lists on a card.
 """
 
 from __future__ import annotations
@@ -447,7 +449,8 @@ def _uncells(cells, gh: int, gw: int, size_h: int, size_w: int):
 
 def _up(a, k: int):
     """Repeat each element of a 2-D grid into a k x k block."""
-    return a.repeat_interleave(k, dim=0).repeat_interleave(k, dim=1)
+    ny, nx = a.shape
+    return a[:, None, :, None].expand(ny, k, nx, k).reshape(ny * k, nx * k)
 
 
 @device_cache
@@ -471,7 +474,8 @@ def _positions(ny: int, nx: int, step: int, device):
     of step-px cells, flattened, int32."""
     ar_y = torch.arange(ny, dtype=_I32, device=device) * step
     ar_x = torch.arange(nx, dtype=_I32, device=device) * step
-    return ar_y.repeat_interleave(nx), ar_x.repeat(ny)
+    return (ar_y[:, None].expand(ny, nx).reshape(-1),
+            ar_x[None, :].expand(ny, nx).reshape(-1))
 
 
 def _mc_single(ref_pad, pos_y, pos_x, mv, h, w, bd, xdec, ydec):
@@ -494,6 +498,11 @@ def _mc_prep(ref_pad, pos_y, pos_x, mv, h, w, bd, xdec, ydec):
 # 3 LAST@zero, 4 compound LAST@field0 + ALTREF@field1
 N_CAND = 5
 CAND_REF = (0, 1, 2, 0, 0)
+
+
+@device_cache
+def _cand_ref(device):
+    return torch.as_tensor(CAND_REF, dtype=_I32, device=device)
 
 
 def _active_by_size(geom: ChainGeom, ords):
@@ -652,7 +661,7 @@ def _chroma_stage(geom: ChainGeom):
         dev = aux.device
         ref_u = torch.stack(refs_u)
         ref_v = torch.stack(refs_v)
-        cand_ref = torch.as_tensor(CAND_REF, dtype=_I32, device=dev)
+        cand_ref = _cand_ref(dev)
         active_by_size = _active_by_size(g, ords)
         pred = {"u": torch.zeros((ch_h, ch_w), dtype=_I32, device=dev),
                 "v": torch.zeros((ch_h, ch_w), dtype=_I32, device=dev)}
@@ -869,9 +878,9 @@ def _filters_stage(geom: ChainGeom):
                     bsize_mi, tx_mi, skip_mi, pli, xdec, ydec, rows_p,
                     cols_p, vertical, g.mi_rows, g.mi_cols)
                 if vertical:
-                    sizes[:, 0] = 0
+                    sizes[:, 0].zero_()
                 else:
-                    sizes[0, :] = 0
+                    sizes[0, :].zero_()
                 full = torch.zeros((ph // 4, pw // 4), dtype=_I32, device=dev)
                 full[:rows_p, :cols_p] = sizes
                 full = torch.where(level > 0, full, 0)
@@ -948,7 +957,9 @@ def _pack_stage(geom: ChainGeom):
 @functools.lru_cache(None)
 def chain_stages(geom: ChainGeom):
     """The five stage functions of the chain for one geometry: select +
-    luma MC, chroma MC, transform/quantize/recon, deblock + CDEF, pack."""
+    luma MC, chroma MC, transform/quantize/recon, deblock + CDEF, pack.
+    They hold no tensors, so every pipeline may share them; the graphs'
+    static buffers are each pipeline's own (``graphs.ChainPrograms``)."""
     return (
         _sel_luma_stage(geom),
         _chroma_stage(geom),
@@ -1043,21 +1054,42 @@ def to_device(a, device, dtype=None) -> torch.Tensor:
     return t
 
 
-def run_stages(geom: ChainGeom, src, refs, aux, y_list, uv_list):
-    """The five stages on device tensors: src (y, u, v) SB-extent planes,
-    refs ((y, u, v),) * 3 padded reference planes, aux the packed int32
-    inputs.  Returns (ref_out, hdr, levels): the padded recon planes and
-    the int16 payload pair."""
+def stage_calls(geom: ChainGeom, y_list, uv_list):
+    """The five stages as ``(output names, call)`` pairs.  Each call takes
+    a dict holding the inputs ``src`` (y, u, v), ``refs`` ((y, u, v),) * 3
+    and ``aux`` and the named outputs of the stages before it, and returns
+    its own outputs in the order of its names."""
     f_sel, f_chroma, f_txq, f_filters, f_pack = chain_stages(geom)
-    pred_y, sels = f_sel(src[0], tuple(r[0] for r in refs), aux)
-    pred_u, pred_v = f_chroma(
-        tuple(r[1] for r in refs), tuple(r[2] for r in refs), aux, sels)
-    levels_flat, eob_ord, overflow, recons, skip8, tx8, bsize8 = f_txq(
-        src, (pred_y, pred_u, pred_v), aux)
-    ref_out, cdef_idx = f_filters(recons, src, skip8, tx8, bsize8, aux,
-                                  y_list, uv_list)
-    hdr, levels = f_pack(overflow, eob_ord, sels, cdef_idx, levels_flat)
-    return ref_out, hdr, levels
+    return (
+        (("pred_y", "sels"),
+         lambda d: f_sel(d["src"][0], tuple(r[0] for r in d["refs"]),
+                         d["aux"])),
+        (("pred_u", "pred_v"),
+         lambda d: f_chroma(tuple(r[1] for r in d["refs"]),
+                            tuple(r[2] for r in d["refs"]), d["aux"],
+                            d["sels"])),
+        (("levels_flat", "eob_ord", "overflow", "recons", "skip8", "tx8",
+          "bsize8"),
+         lambda d: f_txq(d["src"], (d["pred_y"], d["pred_u"], d["pred_v"]),
+                         d["aux"])),
+        (("ref_out", "cdef_idx"),
+         lambda d: f_filters(d["recons"], d["src"], d["skip8"], d["tx8"],
+                             d["bsize8"], d["aux"], y_list, uv_list)),
+        (("hdr", "levels"),
+         lambda d: f_pack(d["overflow"], d["eob_ord"], d["sels"],
+                          d["cdef_idx"], d["levels_flat"])),
+    )
+
+
+def run_stages(geom: ChainGeom, src, refs, aux, y_list, uv_list):
+    """The five stages, eagerly, on device tensors: src (y, u, v) SB-extent
+    planes, refs ((y, u, v),) * 3 padded reference planes, aux the packed
+    int32 inputs.  Returns (ref_out, hdr, levels): the padded recon planes
+    and the int16 payload pair."""
+    d = {"src": src, "refs": refs, "aux": aux}
+    for names, call in stage_calls(geom, y_list, uv_list):
+        d.update(zip(names, call(d)))
+    return d["ref_out"], d["hdr"], d["levels"]
 
 
 # previous frame's level count per geometry: sizes the optimistic levels
@@ -1073,18 +1105,21 @@ def _lvl_bucket(n: int, cap: int) -> int:
 
 def _download(t: torch.Tensor) -> torch.Tensor:
     """Start a device->host copy of ``t`` into pinned memory (non-blocking
-    on a CUDA device); the result is valid once the stream reaches it."""
+    on a CUDA device); the result is valid once the stream reaches it.  On
+    the CPU a copy too: ``t`` may be a static buffer of the runner, which
+    the next dispatch overwrites."""
     if t.device.type != "cuda":
-        return t
+        return t.clone()
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
     return host
 
 
-def dispatch_chain(geom: ChainGeom, plan: ChainPlan, src_planes, ref_planes,
-                   fields, dcq8, acq8, dbl_levels, cdef_y, cdef_uv, *,
-                   device):
-    """Launch the chain on ``device``.
+def dispatch_chain(programs, geom: ChainGeom, plan: ChainPlan, src_planes,
+                   ref_planes, fields, dcq8, acq8, dbl_levels, cdef_y,
+                   cdef_uv):
+    """Launch the chain through ``programs`` (a ``graphs.ChainPrograms``,
+    which names the device).
 
     src_planes: 3 SB-extent planes (numpy, or the luma already on the
     device); ref_planes: ((y, u, v),) * 3 padded planes on the device;
@@ -1093,12 +1128,10 @@ def dispatch_chain(geom: ChainGeom, plan: ChainPlan, src_planes, ref_planes,
     an optimistic levels prefix start their way to the host right behind it.
     Returns an opaque handle for :func:`fetch_chain`."""
     # ONE host->device transfer for everything but the pixel planes
-    aux = to_device(
-        pack_aux(geom, plan, fields, dcq8, acq8, dbl_levels, cdef_y, cdef_uv),
-        device)
-    src = tuple(to_device(p, device) for p in src_planes)
-    ref_out, hdr, levels = run_stages(geom, src, ref_planes, aux,
-                                      cdef_y, cdef_uv)
+    aux = pack_aux(geom, plan, fields, dcq8, acq8, dbl_levels, cdef_y,
+                   cdef_uv)
+    ref_out, hdr, levels = programs.run(geom, src_planes, ref_planes, aux,
+                                        cdef_y, cdef_uv)
     pre_n = _lvl_bucket(_LVL_TOTAL_HINT.get(geom, 8192) * 3 // 2, geom.lcap)
     hdr_host = _download(hdr)
     pre_host = _download(levels[:pre_n])

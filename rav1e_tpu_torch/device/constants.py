@@ -193,12 +193,22 @@ def device_cache(fn):
     device given as its last argument.  On a CUDA device its work is waited
     for before the value is cached: GOP-parallel workers share these caches
     from streams of their own (``api/channel.py``), and one worker's stream
-    must not read a tensor that another's has not written yet."""
+    must not read a tensor that another's has not written yet.
+
+    A miss cannot be served inside a CUDA graph capture (its host->device
+    copy and its synchronize are not capturable), so it raises there: the
+    eager frame that comes before every capture (``device/graphs.py``) fills
+    each cache the captured stages read."""
 
     @functools.lru_cache(None)
     def cached(*args):
-        out = fn(*args)
         dev = torch.device(args[-1])
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"device constant {fn.__name__}{args[:-1]} was first asked "
+                "for inside a CUDA graph capture; the eager frame before the "
+                "capture should have made it")
+        out = fn(*args)
         if dev.type == "cuda":
             torch.cuda.current_stream(dev).synchronize()
         return out

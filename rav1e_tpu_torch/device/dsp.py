@@ -184,9 +184,9 @@ def fwd_tx_batched(res, tx_size: TxSize, tx_type: TxType):
     c = _rs(c, FWD_MAT_SHIFT)
     w, h = tx_size.width, tx_size.height
     if w > 32:
-        c[:, :, 32:] = 0
+        c[:, :, 32:].zero_()
     if h > 32:
-        c[:, 32:, :] = 0
+        c[:, 32:, :].zero_()
     return c
 
 
@@ -470,7 +470,7 @@ def deblock_pass_device(rec, fsize_grid, level, bd: int, vertical: bool):
         # tap k lives at column pad + 4*i + (k - 7)
         taps = [rec[pad : pad + ph, pad - 7 + k : pad - 7 + k + 4 * n : 4]
                 for k in range(14)]
-        fs = fsize_grid.repeat_interleave(4, dim=0)
+        fs = fsize_grid[:, None, :].expand(rows_p, 4, cols_p).reshape(ph, n)
         mods = deblock_taps14(taps, level, bd, fs)
         for k in range(1, 13):
             delta = torch.where(fs != 0, mods[k - 1] - taps[k], 0)
@@ -479,7 +479,7 @@ def deblock_pass_device(rec, fsize_grid, level, bd: int, vertical: bool):
     pw, n = 4 * cols_p, rows_p
     taps = [rec[pad - 7 + k : pad - 7 + k + 4 * n : 4, pad : pad + pw]
             for k in range(14)]
-    fs = fsize_grid.repeat_interleave(4, dim=1)
+    fs = fsize_grid[:, :, None].expand(rows_p, cols_p, 4).reshape(n, pw)
     mods = deblock_taps14(taps, level, bd, fs)
     for k in range(1, 13):
         delta = torch.where(fs != 0, mods[k - 1] - taps[k], 0)

@@ -22,6 +22,7 @@ from rav1e_tpu_torch.ops.cdef import (
     CDEF_VERY_LARGE,
     _DIV_TABLE,
 )
+from rav1e_tpu_torch.device.constants import device_cache
 from rav1e_tpu_torch.device.constants import on as _tables
 
 _I64 = torch.int64
@@ -129,6 +130,13 @@ def _constrain(diff, adiff, strength, shift):
     return torch.where(strength == 0, 0, con)
 
 
+@device_cache
+def _scalar(v: int, dtype, device):
+    """A 0-d tensor on ``device``, made once: the chain's CUDA graphs
+    capture this stage, and a capture cannot copy from the host."""
+    return torch.tensor(v, dtype=dtype, device=device)
+
+
 def cdef_filter_from_taps(taps, pri, sec: int, damping: int, bd: int):
     """Filter using precomputed taps (cdef_tap_precompute); pri (nby, nbx)
     int64 per-cell primary strength, sec a python int."""
@@ -144,7 +152,7 @@ def cdef_filter_from_taps(taps, pri, sec: int, damping: int, bd: int):
         ..., None, None
     ]
     sec_shift = max(0, damping - (max(sec, 1).bit_length() - 1))
-    sec_t = torch.tensor(sec, dtype=x.dtype, device=x.device)
+    sec_t = _scalar(sec, x.dtype, x.device)
 
     total = torch.zeros_like(x)
     ti = 0

@@ -2283,6 +2283,12 @@ class FramePipeline:
         self._chain_slots: list = [None] * 8
         self._chain_pending_refs = None
         self._chain_dummy_rec = None
+        # the chain's stages as CUDA graphs per (geometry, CDEF lists) on a
+        # card, eager into the same static buffers on the CPU; this
+        # pipeline's own, as are its buffers and graph pool
+        from rav1e_tpu_torch.device.graphs import ChainPrograms
+
+        self._chain_programs = ChainPrograms(self.device)
         # chain dispatched one frame early (validated at consumption):
         self._pending_chain = None
         self.rc = RCState(
@@ -2639,8 +2645,8 @@ class FramePipeline:
         with span("chain_dispatch", frame=fno, has_bwd=has_bwd,
                   has_bwd2=has_bwd2):
             handle = _chain.dispatch_chain(
-                geom, cplan, src_p, refs3, fields, dcq8, acq8,
-                deblock_levels, y_list, uv_list, device=self.device,
+                self._chain_programs, geom, cplan, src_p, refs3, fields,
+                dcq8, acq8, deblock_levels, y_list, uv_list,
             )
         return {
             "handle": handle, "geom": geom, "cplan": cplan, "fields": fields,

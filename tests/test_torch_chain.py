@@ -20,6 +20,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from rav1e_tpu.device import chain as rchain  # noqa: E402
 from rav1e_tpu_torch.device import chain  # noqa: E402
+from rav1e_tpu_torch.device.graphs import ChainPrograms  # noqa: E402
 
 W, H = 192, 128
 MI_COLS, MI_ROWS = 2 * ((W + 7) >> 3), 2 * ((H + 7) >> 3)
@@ -334,9 +335,10 @@ def test_dispatch_fetch_on_cpu(stage_case):
     c = stage_case
     g = c["geom"]
     refs = tuple(tuple(_t(p) for p in r) for r in c["refs"])
-    handle = chain.dispatch_chain(g, c["plan"], c["src"], refs, c["fields"],
-                                  c["dcq8"], c["acq8"], c["dbl"], c["y_list"],
-                                  c["uv_list"], device="cpu")
+    handle = chain.dispatch_chain(ChainPrograms("cpu"), g, c["plan"],
+                                  c["src"], refs, c["fields"], c["dcq8"],
+                                  c["acq8"], c["dbl"], c["y_list"],
+                                  c["uv_list"])
     res = chain.fetch_chain(handle)
     hdr = c["want"]["hdr"]
     assert res.overflow is False

@@ -196,9 +196,11 @@ def _port_files():
                ROOT / "tools" / "grid_search_bench.py",
                ROOT / "tools" / "gop_channel_profile.py",
                ROOT / "tools" / "mesh_profile.py", ROOT / "bench_torch.py",
+               ROOT / "tools" / "chain_graphs_bench.py",
                ROOT / "reference_cells.py",
                ROOT / "tests" / "test_torch_reference_packets.py",
-               ROOT / "tests" / "test_torch_native_tile.py"])
+               ROOT / "tests" / "test_torch_native_tile.py",
+               ROOT / "tests" / "test_torch_chain_graphs.py"])
 
 
 def test_port_imports_nothing_of_rav1e_tpu():
@@ -206,6 +208,7 @@ def test_port_imports_nothing_of_rav1e_tpu():
     assert len(files) > 40
     assert ROOT / "rav1e_tpu_torch" / "parallel" / "mesh.py" in files
     assert ROOT / "rav1e_tpu_torch" / "parallel" / "dryrun.py" in files
+    assert ROOT / "rav1e_tpu_torch" / "device" / "graphs.py" in files
     found = {str(f.relative_to(ROOT)): b for f in files
              if (b := _imports_of_rav1e_tpu(f))}
     assert found == {}
