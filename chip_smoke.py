@@ -11,11 +11,12 @@ Phases, each printing one line with its time:
    host coder's native library;
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, exactly equal, at the encoder's 1080p shapes plus a ragged
-   batch and 12-bit magnitudes, with both timed by CUDA events: satd8 at
-   the intra and subpel shapes and at 12-bit diffs whose 64x64 block sums
-   reach their bound (4096 * 4095), grid_search at the four full-pel rounds
-   that me_field runs on two frames of the clip, on a flat plane (every key
-   ties within a seed) and at a ragged n = 37;
+   batch and 12-bit magnitudes, with both timed by CUDA events (a kernel's
+   time the median of 5 timings of 20 calls, printed with their spread):
+   satd8 at the intra and subpel shapes and at 12-bit diffs whose 64x64
+   block sums reach their bound (4096 * 4095), grid_search at the four
+   full-pel rounds that me_field runs on two frames of the clip, on a flat
+   plane (every key ties within a seed) and at a ragged n = 37;
 4. slice: a 16-frame 1080p 8-bit 4:2:0 encode through the default
    rav1e_tpu_torch.Config() at speed 6 (device "cuda"; device analysis and
    device reconstruction chain on, pyramid reordering); prints the frames
@@ -24,11 +25,14 @@ Phases, each printing one line with its time:
    kernels were launched by the encode; prints the pipeline's chain graphs
    (device/graphs.py: keys, captures, eager and replayed frames, the
    pool's bytes) and fails unless every chain frame after its key's first
-   was five graph replays; every packet decodes to its reconstruction
-   through rav1e_tpu_torch.decoder;
+   was five graph replays, and likewise for the analysis and CDEF graphs
+   (every run after its key's first a replay); every packet decodes to
+   its reconstruction through rav1e_tpu_torch.decoder;
 5. chain-off tier: the same preset with device_chain=False over the first
-   4 frames (every frame through the host tile coder), with the same
-   launch and decode checks;
+   4 frames (every frame through the host tile coder and the standalone
+   CDEF stage), with the same launch, graph and decode checks, and each
+   CDEF graph replay held against the stage run eagerly on the card on
+   the same inputs;
 6. chain stages: the five device-chain stages for one bidirectional inter
    frame of the clip, on the card and on the CPU from identical inputs
    (maps, MV fields, packed aux, reference planes): every output exactly
@@ -45,7 +49,12 @@ Phases, each printing one line with its time:
 7. analysis: the port's whole-frame analysis on the card against the same
    analysis on the CPU (plain versions) for a key, a forward-inter and a
    bidirectional frame: MV fields exactly equal, and every differing
-   decision cell a near-tie (relative cost gap < 1e-5 on the CPU);
+   decision cell a near-tie (relative cost gap < 1e-5 on the CPU); then
+   the analysis as CUDA graphs at each of its four keys (intra, forward,
+   +backward, +far backward), eager, capturing and replayed, each exactly
+   equal to the eager analysis on the card in all seven outputs and in
+   launch counts, two dispatches of a key kept apart, and each timed and
+   profiled (a replay must make at most 10 host launches);
 8. small clip: a 256x128 6-frame encode (chain on) on the card and on the
    CPU gives byte-identical packets;
 9. cli (run right after the slice, its decode check in the decode phase):
@@ -127,6 +136,8 @@ PEAK_OPS_PER_S = 67e12  # H100 SXM non-tensor float32 rate
 # satd8, per 8x8 cell: 16 eight-point butterflies of 24 add/sub, 64 |.|,
 # 64 adds
 SATD_OPS_PER_CELL = 16 * 24 + 64 + 64
+# a kernel's time: the median of this many CUDA-event timings of 20 calls
+KERNEL_RUNS = 5
 
 
 def fail(msg: str) -> None:
@@ -301,11 +312,12 @@ def kernel_phase(dev, luma0, luma1):
             fail(f"satd8 {label}: kernel != plain (max abs err {err})")
         if mag is None and not bool((got == 4096 * 4095).all()):
             fail(f"satd8 {label}: a block is not at the bound 4096 * 4095")
-        ms = cuda_ms(lambda: kernels.satd8(d), 20)
+        runs = [cuda_ms(lambda: kernels.satd8(d), 20)
+                for _ in range(KERNEL_RUNS)]
         pms = cuda_ms(lambda: kernels.satd8_plain(d), 5)
         cells = d.numel() // 64
         b = bound(4 * (d.numel() + got.numel()), SATD_OPS_PER_CELL * cells)
-        rows.append(("satd8", label, err, ms, pms, *b))
+        rows.append(("satd8", label, err, runs, pms, *b))
     for label, a in grid_cases:
         got = kernels.grid_search(*a)
         want = kernels.grid_search_plain(*a)
@@ -314,13 +326,17 @@ def kernel_phase(dev, luma0, luma1):
                else float("inf"))
         if err != 0:
             fail(f"grid_search {label}: kernel != plain (max abs err {err})")
-        ms = cuda_ms(lambda: kernels.grid_search(*a), 20)
+        runs = [cuda_ms(lambda: kernels.grid_search(*a), 20)
+                for _ in range(KERNEL_RUNS)]
         pms = cuda_ms(lambda: kernels.grid_search_plain(*a), 5)
-        rows.append(("grid_search", label, err, ms, pms,
+        rows.append(("grid_search", label, err, runs, pms,
                      *bound(*grid_search_bound(a))))
     summary = {}
-    for name, label, err, ms, pms, bms, by in rows:
+    for i, (name, label, err, runs, pms, bms, by) in enumerate(rows):
+        ms = float(np.median(runs))
+        rows[i] = (name, label, err, ms, pms, bms, by)
         print(f"  {name:11s} {label:24s} max_abs_err={err} kernel_ms={ms:.4f} "
+              f"(median of {len(runs)}, {min(runs):.4f}-{max(runs):.4f}) "
               f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}) "
               f"share_of_bound={bms / ms:.3f}", flush=True)
         s = summary.setdefault(name, {"max_abs_err": 0.0})
@@ -423,12 +439,51 @@ def verify_decode(pkts, shown=None):
         fail(err)
 
 
+def check_cdef_replays(programs):
+    """Hold each replay of ``programs`` (a pipeline's CdefPrograms) against
+    ``cdef_stage_core`` run eagerly on the card on the same static inputs,
+    planes and index map exactly; returns the list that collects each
+    replay's verdict and the list of each run's kind (eager, capture or
+    replay) and host ms to enqueue."""
+    import torch
+
+    from rav1e_tpu_torch.device.filters import cdef_stage_core
+
+    real = programs.run
+    verdicts, runs = [], []
+
+    def run(planes, grid, damping, bd, rec, src, filt, y_str, uv_str):
+        key = (tuple(planes), tuple(grid), damping, bd, tuple(y_str),
+               tuple(uv_str))
+        k = programs._keys.get(key)
+        kind = ("eager" if k is None or not k.eager
+                else "capture" if k.graphs is None else "replay")
+        t0 = time.perf_counter()
+        outs, idx = real(planes, grid, damping, bd, rec, src, filt, y_str,
+                         uv_str)
+        runs.append((kind, (time.perf_counter() - t0) * 1e3))
+        if kind != "eager":
+            d = programs._keys[key].data
+            want, want_idx = cdef_stage_core(
+                planes, grid, damping, bd, d["rec"], d["src"], d["filt"],
+                list(y_str), list(uv_str))
+            verdicts.append(torch.equal(idx, want_idx) and all(
+                torch.equal(a, b) for a, b in zip(outs, want)))
+        return outs, idx
+
+    programs.run = run
+    return verdicts, runs
+
+
 def encode_phase(rav1e_tpu_torch, clip, chain, label):
     """Encode ``clip`` through the preset on the card with the kernels'
     launch counts set to 0 just before and read just after; returns the
     packets, the launch counts, the stage spans and the pipeline's chain
     graph counts (``ChainPrograms.stats``), which must show every chain
-    frame after its key's first replayed."""
+    frame after its key's first replayed, as the analysis and CDEF graph
+    counts must show every analysis and CDEF stage after its key's first.
+    With the chain off each CDEF replay is held against the eager stage
+    (:func:`check_cdef_replays`)."""
     import torch
 
     from rav1e_tpu_torch.device import kernels
@@ -437,6 +492,8 @@ def encode_phase(rav1e_tpu_torch, clip, chain, label):
     trace.trace_enable()
     trace.reset()
     ctx = slice_config(rav1e_tpu_torch, chain=chain).new_context()
+    cdef_check = (None if chain
+                  else check_cdef_replays(ctx.pipeline._cdef_programs))
     torch.cuda.synchronize()
     kernels.reset_launches()
     t = time.monotonic()
@@ -474,7 +531,33 @@ def encode_phase(rav1e_tpu_torch, clip, chain, label):
             or graphs["eager"] + graphs["replays"] != frames):
         fail(f"{label}: a chain frame after its key's first was not a "
              f"replay ({frames} chain frames, {graphs})")
+    for name, st in runner_stats(ctx).items():
+        print(f"  {name} graphs: {st['keys']} keys, {st['captured']} "
+              f"captured, {st['eager']} eager runs, {st['replays']} "
+              f"replayed, pool {st['pool_bytes']} bytes", flush=True)
+        for *key, eager, replays in st["by_key"]:
+            print(f"    key {tuple(key)}: {eager} eager, {replays} replayed",
+                  flush=True)
+        if st["eager"] != st["keys"]:
+            fail(f"{label}: a {name} run after its key's first was not a "
+                 f"replay ({st})")
+    if cdef_check is not None:
+        verdicts, runs = cdef_check
+        if not verdicts or not all(verdicts):
+            fail(f"{label}: CDEF graph replays against the eager stage: "
+                 f"{verdicts}")
+        print(f"  {len(verdicts)} CDEF graph replays == the eager stage; "
+              "host ms to enqueue (loads from pinned memory included): "
+              + ", ".join(f"{kind} {ms:.3f}" for kind, ms in runs),
+              flush=True)
     return pkts, launches, spans, graphs
+
+
+def runner_stats(ctx):
+    """The stats of a context's analysis and CDEF runners."""
+    p = ctx.pipeline
+    return {"analysis": p._analysis_programs.stats(),
+            "CDEF": p._cdef_programs.stats()}
 
 
 def span_count(spans, name):
@@ -482,14 +565,19 @@ def span_count(spans, name):
 
 
 def graph_counts(ctx, chain_frames):
-    """The pipeline's chain graphs as a short report, and a fault when a
-    key ran eagerly more than once or fewer frames were dispatched than
-    ``chain_frames`` were coded by the chain."""
+    """The pipeline's chain, analysis and CDEF graphs as a short report,
+    and a fault when a key ran eagerly more than once or fewer frames were
+    dispatched than ``chain_frames`` were coded by the chain."""
     g = ctx.pipeline._chain_programs.stats()
     report = (f"graphs: {g['keys']} keys, {g['captured']} captured, "
               f"{g['replays']} replayed")
     if g["eager"] != g["keys"] or g["eager"] + g["replays"] < chain_frames:
         return report, f"chain graphs {g} for {chain_frames} chain frames"
+    for name, st in runner_stats(ctx).items():
+        report += (f"; {name} graphs: {st['keys']} keys, {st['captured']} "
+                   f"captured, {st['replays']} replayed")
+        if st["eager"] != st["keys"]:
+            return report, f"{name} graphs {st}: a key ran eagerly twice"
     return report, None
 
 
@@ -835,7 +923,121 @@ def analysis_phase(clip, dev):
                  f"{worst:.3g} is not a near-tie")
         report.append(f"{name}: {ndiff} of {differ.numel()} cells differ"
                       + (f" (largest gap {worst:.3g})" if ndiff else ""))
-    return report
+    return report + analysis_graph_check(clip, dev)
+
+
+# the four keys of the analysis runner in a pyramid clip: (name, frame A,
+# frame B), each frame its clip indices (subject, then forward, backward
+# and far-backward references)
+ANALYSIS_KEYS = (("intra", (0,), (1,)), ("fwd", (1, 0), (2, 1)),
+                 ("fwd+bwd", (2, 0, 4), (3, 1, 5)),
+                 ("fwd+bwd+bwd2", (2, 0, 4, 8), (3, 1, 5, 9)))
+QUANTIZER_B = QUANTIZER + 20  # frame B's, so q and lambda change in a key
+# host launches of a replayed analysis: the plane and scalar copies, one
+# replay, one clone of the packed outputs
+ANALYSIS_REPLAY_LAUNCHES = 10
+
+
+def analysis_graph_check(clip, dev):
+    """The analysis as CUDA graphs (``AnalysisPrograms``) at 1080p, for each
+    of the four keys, through ``analyze_frame_async`` as the pipeline calls
+    it: frame A runs eagerly, frame B (another quantizer) captures and
+    replays, A replays; each equals ``_frame_analysis`` run eagerly on the
+    card exactly in all seven outputs, and counts the same kernel launches.
+    Two dispatches of the key (B then A) before either is read keep their
+    own results.  One runner holds all four keys, as a pipeline's does;
+    after the last key each key's frame B replays to its eager result
+    again.  Per key: host ms to enqueue and CUDA-event ms of the eager,
+    capturing and replayed analysis, and from torch.profiler (a second
+    runner) their host launches, kernels and device-busy ms; a replay must
+    make at most ANALYSIS_REPLAY_LAUNCHES host launches.  Returns the report
+    lines."""
+    import torch
+
+    from rav1e_tpu_torch import tables
+    from rav1e_tpu_torch.device import analysis, kernels
+    from rav1e_tpu_torch.device.graphs import AnalysisPrograms
+
+    luma = [analysis.upload_source_luma(clip[i][0], dev) for i in range(10)]
+
+    def lam(qi):
+        return 0.12 * (tables.ac_q(qi, 0, 8) / 8.0) ** 2
+
+    def flags(idx):
+        return (len(idx) > 1, len(idx) > 2, len(idx) > 3)
+
+    def dispatch(runner, idx, qi):
+        refs = [luma[i] for i in idx[1:]] + [None] * (4 - len(idx))
+        return analysis.analyze_frame_async(
+            luma[idx[0]], refs[0], refs[1], qi, lam(qi), 8, ref2_np=refs[2],
+            device=dev, programs=runner)
+
+    def eager(idx, qi):
+        planes = [luma[i].to(torch.int32) for i in idx]
+        f = flags(idx)
+        ref0 = planes[1] if f[0] else planes[0]
+        ref1 = planes[2] if f[1] else ref0
+        ref2 = planes[3] if f[2] else ref0
+        q, lt = analysis._scalars(qi, lam(qi), 8, dev)
+        kernels.reset_launches()
+        out = analysis._frame_analysis(planes[0], ref0, ref1, ref2, q, lt,
+                                       8, *f)[:7]
+        return out, dict(kernels.LAUNCHES)
+
+    def same(handle, want, what):
+        if not all(a.dtype == b.dtype and torch.equal(a, b)
+                   for a, b in zip(handle[0], want)):
+            fail(f"analysis graphs: {what} differs from the eager analysis")
+
+    runner, profiled = AnalysisPrograms(dev), AnalysisPrograms(dev)
+    lines, wants = [], {}
+    for name, a, b in ANALYSIS_KEYS:
+        want = {a: eager(a, QUANTIZER), b: eager(b, QUANTIZER_B)}
+        wants[name] = (b, want[b][0])
+        row = []
+        for how, idx, qi in (("eager", a, QUANTIZER),
+                             ("capture", b, QUANTIZER_B),
+                             ("replay", a, QUANTIZER)):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            ev[0].record()
+            t0 = time.perf_counter()
+            h = dispatch(runner, idx, qi)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            ev[1].record()
+            torch.cuda.synchronize()
+            same(h, want[idx][0], f"{name} {how} frame {idx}")
+            if dict(kernels.LAUNCHES) != want[idx][1]:
+                fail(f"analysis graphs: {name} {how} counted launches "
+                     f"{kernels.LAUNCHES}, the eager analysis "
+                     f"{want[idx][1]}")
+            kern, copies, host, busy = profile_call(
+                lambda: dispatch(profiled, idx, qi))
+            row.append(f"{how} host_ms={host_ms:.3f} "
+                       f"ms={ev[0].elapsed_time(ev[1]):.3f} "
+                       f"host_launches={host} kernels={kern} copies={copies} "
+                       f"device_busy_ms={busy:.3f}")
+            if how == "replay" and host > ANALYSIS_REPLAY_LAUNCHES:
+                fail(f"analysis graphs: a {name} replay made {host} host "
+                     f"launches, more than {ANALYSIS_REPLAY_LAUNCHES}")
+        hb = dispatch(runner, b, QUANTIZER_B)
+        ha = dispatch(runner, a, QUANTIZER)
+        same(hb, want[b][0], f"{name}: of two dispatches, the first")
+        same(ha, want[a][0], f"{name}: of two dispatches, the second")
+        ms = cuda_ms(lambda: dispatch(runner, a, QUANTIZER), 5)
+        lines.append(f"analysis graphs {name:12s} " + " | ".join(row)
+                     + f" | replay ms over 5={ms:.3f}; launches "
+                     f"{want[a][1]}; == eager, two dispatches kept")
+    for name, (b, want) in wants.items():
+        same(dispatch(runner, b, QUANTIZER_B), want, f"{name} after all keys")
+    st = runner.stats()
+    if (st["keys"], st["captured"], st["eager"]) != (4, 4, 4):
+        fail(f"analysis graphs: runner stats {st}")
+    lines.append(f"analysis graphs: 4 keys in one runner, {st['replays']} "
+                 f"replays, each key's frame B == eager again after all "
+                 f"keys; pool {st['pool_bytes']} bytes")
+    return lines
 
 
 def small_clip_phase(rav1e_tpu_torch, dev):

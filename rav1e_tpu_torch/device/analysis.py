@@ -13,7 +13,10 @@ Counterpart of ``rav1e_tpu/device/analysis.py``.  One call per frame:
 
 PyTorch launches are asynchronous on a CUDA device: :func:`analyze_frame_async`
 returns tensors that may still be in flight, and :func:`analyze_finish` copies
-them to the host.
+them to the host.  A pipeline's analyses run through its
+``device/graphs.AnalysisPrograms``: on a card one CUDA graph per (padded
+shape, bit depth, references) replays :func:`analysis_call` after the key's
+first frame, the counterpart of the reference's ``frame_analysis_jit``.
 
 When more than one card is visible, the frame's rows shard over all of them
 (:func:`_analysis_mesh`): each band of whole superblock rows is analysed on
@@ -239,6 +242,13 @@ def satd8(diff):
     return kernels.satd8(diff)
 
 
+@device_cache
+def _ln2(device):
+    """log(2) as a float32 0-d tensor on ``device``, made once: a graph
+    capture of the analysis cannot make it from a host value."""
+    return torch.log(torch.tensor(2.0, dtype=_F32, device=device))
+
+
 def tx_rd_estimate(residual, s: int, q):
     """Transform-domain rate + distortion estimate of (n, s, s) residuals.
 
@@ -260,8 +270,8 @@ def tx_rd_estimate(residual, s: int, q):
     sse_px = (err * err).sum(dim=(1, 2)) / gain2
     # per-coefficient rate: ~golomb-ish growth, small floor for coded zeros
     # (log2 as log(x) / log(2), the jnp.log2 formulation)
-    ln2 = torch.log(torch.tensor(2.0, dtype=_F32, device=c.device))
-    bits = torch.where(level > 0, 1.8 + 1.9 * (torch.log(level + 1.0) / ln2),
+    bits = torch.where(level > 0,
+                       1.8 + 1.9 * (torch.log(level + 1.0) / _ln2(c.device)),
                        0.02)
     return bits.sum(dim=(1, 2)), sse_px
 
@@ -360,8 +370,8 @@ def mc_residual(luma, ref, mv8):
     dev = luma.device
     ii = torch.arange(hh, device=dev)[:, None]
     jj = torch.arange(ww, device=dev)[None, :]
-    dy = mv8[..., 0].repeat_interleave(8, 0).repeat_interleave(8, 1)[:hh, :ww]
-    dx = mv8[..., 1].repeat_interleave(8, 0).repeat_interleave(8, 1)[:hh, :ww]
+    dy = _up(mv8[..., 0], 3)[:hh, :ww]
+    dx = _up(mv8[..., 1], 3)[:hh, :ww]
     sy = (ii + dy).clamp(0, hh - 1)
     sx = (jj + dx).clamp(0, ww - 1)
     return luma.to(_I32) - ref[sy, sx]
@@ -394,8 +404,13 @@ class DeviceMaps:
 
 
 def _up(a, k):
+    """Repeat each cell of the two leading dims 2**k times along both (as
+    ``expand`` + ``reshape``: ``repeat_interleave`` may size its output on
+    the host, which a graph capture cannot do)."""
     f = 1 << k
-    return a.repeat_interleave(f, 0).repeat_interleave(f, 1)
+    ny, nx, *rest = a.shape
+    return a[:, None, :, None].expand(ny, f, nx, f, *rest).reshape(
+        ny * f, nx * f, *rest)
 
 
 def _sum4(a):
@@ -537,7 +552,7 @@ def upload_source_luma(luma_np: np.ndarray, device):
 
 
 def analyze_frame_async(luma_np, ref0_np, ref1_np, qindex: int, lam: float,
-                        bd: int, ref2_np=None, *, device):
+                        bd: int, ref2_np=None, *, device, programs=None):
     """Host entry: pad to 64-multiples, put the planes on ``device`` and
     launch the analysis.
 
@@ -546,7 +561,11 @@ def analyze_frame_async(luma_np, ref0_np, ref1_np, qindex: int, lam: float,
     far-backward references), or planes already on the device from
     :func:`upload_source_luma`.  Under the analysis mesh the planes shard
     by rows and each band runs on its slot (:func:`_mesh_frame_analysis`).
-    Returns a handle for :func:`analyze_finish`.
+    Otherwise the frame runs through ``programs``, the caller's
+    ``device/graphs.AnalysisPrograms`` (on a card one CUDA graph per key
+    after the key's first frame); without one, through a runner of its
+    own, whose only frame runs eagerly.  Returns a handle for
+    :func:`analyze_finish`.
     """
     device = torch.device(device)
     mesh = _analysis_mesh(device)
@@ -568,10 +587,10 @@ def analyze_frame_async(luma_np, ref0_np, ref1_np, qindex: int, lam: float,
                                  "over a mesh")
             if p.device.type != device.type:
                 raise ValueError(f"plane on {p.device}, analysis on {device}")
-            return p.to(_I32)
+            return p
         if rows is not None:
             return ShardedPlane.put(mesh, rows, _pad64(p))
-        return torch.from_numpy(_pad64(p)).to(device).to(_I32)
+        return torch.from_numpy(_pad64(p)).to(device)
 
     luma = prep(luma_np)
     has_inter = ref0_np is not None
@@ -589,9 +608,68 @@ def analyze_frame_async(luma_np, ref0_np, ref1_np, qindex: int, lam: float,
         out = _mesh_frame_analysis(mesh, rows, (luma, ref0, ref1, ref2),
                                    qindex, lam, bd, flags)
         return out, *flags
-    q, lam_t = _scalars(qindex, lam, bd, device)
-    out = _frame_analysis(luma, ref0, ref1, ref2, q, lam_t, bd, *flags)
-    return out[:7], *flags
+    if programs is None:
+        from rav1e_tpu_torch.device.graphs import AnalysisPrograms
+
+        programs = AnalysisPrograms(device)
+    out = programs.run(luma, ref0, ref1, ref2,
+                       float(tables.ac_q(qindex, 0, bd)), lam, bd, flags)
+    return out, *flags
+
+
+def analysis_call(d, bd: int, flags):
+    """The analysis of one frame on the static buffers of an
+    ``AnalysisPrograms`` key: ``d`` holds the padded planes "luma" and, as
+    ``flags`` (has_inter, has_bwd, has_bwd2) ask, "ref0", "ref1", "ref2"
+    (any integer type), and "qlam", the (2,) float32 ac quantizer and
+    lambda.  Returns its seven outputs packed (:func:`pack_outputs`)."""
+    luma = d["luma"].to(_I32)
+    ref0 = d["ref0"].to(_I32) if flags[0] else luma
+    ref1 = d["ref1"].to(_I32) if flags[1] else ref0
+    ref2 = d["ref2"].to(_I32) if flags[2] else ref0
+    out = _frame_analysis(luma, ref0, ref1, ref2, d["qlam"][0], d["qlam"][1],
+                          bd, *flags)
+    return pack_outputs(out[:7])
+
+
+def _out_spec(shape):
+    """(dtype, shape) of each of an analysis's seven outputs in handle
+    order, for a padded plane of ``shape``."""
+    h, w = shape
+    n8, n16 = (h // 8, w // 8), (h // 16, w // 16, 2)
+    return ((_I32, n8), (_I32, n8), (torch.bool, n8), (_F32, ()),
+            (_I32, n16), (_I32, n16), (_I32, n16))
+
+
+# pack order: the bool inter map last, so every other section starts at a
+# multiple of 4 bytes
+_PACK_ORDER = (0, 1, 3, 4, 5, 6, 2)
+
+
+def pack_outputs(outs):
+    """An analysis's seven outputs (size, mode and inter maps, bits_est,
+    mv0-mv2) as one uint8 tensor, so that a replay's results are copied out
+    of the graph's memory in one clone (:func:`unpack_outputs` undoes it)."""
+    spec = _out_spec((outs[0].shape[0] * 8, outs[0].shape[1] * 8))
+    for t, (dtype, shape) in zip(outs, spec):
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"analysis output {t.dtype} {tuple(t.shape)}, "
+                             f"expected {dtype} {shape}")
+    return torch.cat([outs[i].reshape(-1).view(torch.uint8)
+                      for i in _PACK_ORDER])
+
+
+def unpack_outputs(flat, shape):
+    """The seven outputs of a :func:`pack_outputs` buffer for a padded plane
+    of ``shape``, as views into it."""
+    spec = _out_spec(shape)
+    views, o = [None] * 7, 0
+    for i in _PACK_ORDER:
+        dtype, shp = spec[i]
+        n = int(np.prod(shp, dtype=np.int64)) * dtype.itemsize
+        views[i] = flat[o : o + n].view(dtype).reshape(shp)
+        o += n
+    return tuple(views)
 
 
 def _padded_shape(p):
@@ -602,6 +680,9 @@ def _padded_shape(p):
 
 
 def _scalars(qindex: int, lam: float, bd: int, device):
+    """q and lambda as float32 0-d tensors, for the analysis of a band of
+    the mesh (an ``AnalysisPrograms`` key loads the same values into its
+    static "qlam")."""
     q = float(tables.ac_q(qindex, 0, bd))
     return (torch.tensor(q, dtype=_F32, device=device),
             torch.tensor(lam, dtype=_F32, device=device))

@@ -3,7 +3,11 @@ apply over whole planes.
 
 Counterpart of ``rav1e_tpu/device/filters.py``.  Every 8x8 cell is filtered
 for every candidate strength at once, the per-64x64 argmin picks the
-strength map, and the chosen reconstruction comes back in one copy.
+strength map, and the chosen reconstruction comes back in one copy.  The
+standalone stage (:func:`cdef_device_frame`) runs through a pipeline's
+``device/graphs.CdefPrograms``, on a card one CUDA graph per key after the
+key's first frame, the counterpart of the reference's ``cdef_stage_jit``;
+the chain captures :func:`cdef_stage_core` inside its own graphs.
 
 All arithmetic is exact integer.  Sums that can exceed 31 bits are int64
 (the reference splits them into 16-bit (hi, lo) pairs because its device has
@@ -329,25 +333,28 @@ def cdef_stage_core(planes, grid, damping: int, bd: int, rec_grids,
 
 
 # ---------------------------------------------------------------------------
-# host wrapper: upload rec/src, run the stage, write decisions + planes back
+# host wrapper: load rec/src, run the stage, write decisions + planes back
 # ---------------------------------------------------------------------------
 
 
-def _to_device(a: np.ndarray, device):
+def _host_grid(a: np.ndarray) -> np.ndarray:
     a = np.ascontiguousarray(a)
     if a.dtype != np.uint8:
         a = a.astype(np.int32)  # 10/12-bit planes: widen on the host
-    return torch.from_numpy(a).to(device)
+    return a
 
 
 def cdef_device_frame(rec_frame, src_frame, blocks, bd, cs, crop_w, crop_h,
-                      damping, base_y, base_uv, *, device):
+                      damping, base_y, base_uv, *, device, programs=None):
     """Device CDEF RD search + apply on ``device`` (drop-in for host
     cdef_rdo_frame + cdef_filter_frame).
 
     Returns (y_strengths, uv_strengths, idx_map, applied) and applies the
     chosen filtering to rec_frame in place.  Candidate lists match host
-    cdef_rdo_frame exactly.
+    cdef_rdo_frame exactly.  The stage runs through ``programs``, the
+    caller's ``device/graphs.CdefPrograms`` (on a card one CUDA graph per
+    key after the key's first frame); without one, through a runner of its
+    own, whose only frame runs eagerly.
     """
     from rav1e_tpu_torch.config import ChromaSampling
 
@@ -379,16 +386,17 @@ def cdef_device_frame(rec_frame, src_frame, blocks, bd, cs, crop_w, crop_h,
         planes_geom.append((ys, xs, vh, vw))
         pad = rp.cfg.pad
         gh, gw = nby * ys, nbx * xs
-        rec_grids.append(
-            _to_device(rp.data[pad - 2 : pad + gh + 2, pad - 2 : pad + gw + 2],
-                       device))
-        src_grids.append(_to_device(sp.data[pad : pad + gh, pad : pad + gw],
-                                    device))
+        rec_grids.append(_host_grid(
+            rp.data[pad - 2 : pad + gh + 2, pad - 2 : pad + gw + 2]))
+        src_grids.append(_host_grid(sp.data[pad : pad + gh, pad : pad + gw]))
 
-    outs, idx = cdef_stage_core(
+    if programs is None:
+        from rav1e_tpu_torch.device.graphs import CdefPrograms
+
+        programs = CdefPrograms(device)
+    outs, idx = programs.run(
         planes_geom, (nby, nbx, sb_rows, sb_cols, crop_w, crop_h), damping,
-        bd, rec_grids, src_grids, torch.from_numpy(filt_np).to(device),
-        y_strengths, uv_strengths,
+        bd, rec_grids, src_grids, filt_np, y_strengths, uv_strengths,
     )
     for p in range(nplanes):
         rp = rec_frame.planes[p]

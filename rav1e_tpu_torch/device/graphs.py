@@ -1,63 +1,84 @@
-"""The device chain as replayed programs: each of its five stages one CUDA
-graph per (geometry, CDEF candidate lists).  Counterpart of
-``rav1e_tpu/device/chain.py`` ``chain_stages_jit``, the reference's five
-compiled programs per geometry.
+"""The device passes as replayed programs: CUDA graphs per key, the port's
+counterparts of the reference's compiled programs.
+
+- :class:`ChainPrograms`: the device chain, each of its five stages one
+  graph per (geometry, CDEF candidate lists), for ``rav1e_tpu/device/
+  chain.py`` ``chain_stages_jit``;
+- :class:`AnalysisPrograms`: the whole-frame analysis, one graph per
+  (padded shape, bit depth, references), for ``rav1e_tpu/device/
+  analysis.py`` ``frame_analysis_jit``; the satd8 and grid_search kernels
+  run inside it as captured nodes;
+- :class:`CdefPrograms`: the standalone CDEF stage, one graph per (planes,
+  grid, damping, bit depth, strength lists), for ``rav1e_tpu/device/
+  filters.py`` ``cdef_stage_jit``.
 
 Run eagerly, a bidirectional 1080p chain frame is some 14,500 PyTorch
-launches, and the host launching them, not the card, sets the frame's pace.
-:class:`ChainPrograms`, one per ``FramePipeline``, keeps for every key static
-input buffers (the three source planes, the 3 x 3 padded reference planes,
-the packed ``aux``) into which each dispatch copies its inputs.  The first
-frame of a key runs the stages eagerly; that also makes every device
-constant the stages read (``constants.device_cache``), which a capture
-cannot do.  The second frame captures each stage as a graph, on a side
-stream, into the runner's memory pool, and from then on a frame is five
-replays on the pipeline's current stream.  Each stage's outputs stay in the
-pool, where the next stage's graph reads them.
+launches and an analysis 2,300-9,100, and the host launching them, not the
+card, sets the pace.  A runner, one of each per ``FramePipeline``, keeps for
+every key static input buffers into which each run copies its inputs.  The
+first run of a key runs the key's calls eagerly; that also makes every
+device constant they read (``constants.device_cache``) and launches every
+kernel they use, which a capture cannot do.  The second run captures each
+call as a graph, on a side stream, into the runner's memory pool, and from
+then on a run is a replay per call on the pipeline's current stream.  A
+call's outputs stay in the pool, where the next call's graph reads them.
 
-What must outlive the next replay is copied out right after the replay: the
-padded reconstruction (the next frames' reference) and the levels buffer
-(``chain.fetch_chain`` reads it when the levels prefix falls short, after
-the next frame's predispatch has replayed).  The header and the levels
-prefix go to pinned host memory in stream order before any later replay
-(``chain.dispatch_chain``).
+What must outlive the next replay is copied out right after the replay, by
+the runner or its caller: the chain's padded reconstruction and levels
+buffer (``chain.fetch_chain`` reads them after the next frame's
+predispatch has replayed; its header goes to pinned host memory in stream
+order before any later replay, ``chain.dispatch_chain``), the analysis's
+seven outputs in one clone (the pipeline holds several predispatched
+analyses before it reads any), and the CDEF stage's planes and index map,
+which its caller downloads.
 
 All of a runner's graphs share its pool, so two keys' graphs may hold their
 temporaries and outputs in the same memory.  That is safe because a runner
-replays one key's five stages and copies out their results before it
-replays anything else, all on one stream.  Captures use the thread-local
-capture mode, so GOP workers (``api/channel.py``), each a pipeline on a
-stream of its own, may pin memory and synchronize while another captures,
-and each thread captures on a stream of its own (:func:`_capture_stream`).
+replays one key's graphs and copies out their results before it replays
+anything else, all on one stream.  Captures use the thread-local capture
+mode, so GOP workers (``api/channel.py``), each a pipeline on a stream of
+its own, may pin memory and synchronize while another captures, and each
+thread captures on a stream of its own (:func:`_capture_stream`).  The
+kernels' launches inside a capture are counted at each replay
+(``kernels.counting_capture``).
 
-On the CPU the runner runs the same stage functions eagerly, into the same
-static buffers, and copies out the same outputs, so a CPU test sees a stale
-read.  There is no switch back to the eager stages on a card: a capture or
-replay that fails raises.
+On the CPU a runner runs the same calls eagerly, into the same static
+buffers, and copies out the same outputs, so a CPU test sees a stale read.
+There is no switch back to the eager calls on a card: a capture or replay
+that fails raises, with a note naming the program and the key.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import numpy as np
 import torch
 
+from rav1e_tpu_torch.device import analysis, kernels
 from rav1e_tpu_torch.device.chain import stage_calls
+from rav1e_tpu_torch.device.filters import cdef_stage_core
 
 
-def _empty_like(a, device) -> torch.Tensor:
-    """An uninitialised tensor on ``device`` of the shape and type of a
-    numpy array or a tensor."""
+def _empty_like(a, device):
+    """Uninitialised tensors on ``device`` of the shapes and types of a
+    numpy array or a tensor, or of each in a tuple of them."""
+    if isinstance(a, tuple):
+        return tuple(_empty_like(x, device) for x in a)
     dtype = (a.dtype if isinstance(a, torch.Tensor)
              else torch.from_numpy(np.empty(0, a.dtype)).dtype)
     return torch.empty(tuple(a.shape), dtype=dtype, device=device)
 
 
-def _load(dst: torch.Tensor, a) -> None:
-    """Copy a numpy array or a tensor into the static ``dst``; from pinned
-    memory without blocking on a card (the caching host allocator keeps
-    the pinned buffer until the copy has run)."""
+def _load(dst, a) -> None:
+    """Copy a numpy array or a tensor (or each in a tuple) into the static
+    ``dst``; from pinned memory without blocking on a card (the caching
+    host allocator keeps the pinned buffer until the copy has run)."""
+    if isinstance(dst, tuple):
+        for d, x in zip(dst, a):
+            _load(d, x)
+        return
     if not isinstance(a, torch.Tensor):
         a = torch.from_numpy(np.ascontiguousarray(a))
         if dst.device.type == "cuda":
@@ -91,54 +112,61 @@ def _copy_into(dst, src) -> None:
             _copy_into(a, b)
 
 
+class Graph:
+    """A captured call: its CUDA graph and the kernel launches it holds,
+    which each replay counts."""
+
+    def __init__(self, graph: torch.cuda.CUDAGraph, launches: dict):
+        self.graph = graph
+        self.launches = launches
+
+    def replay(self) -> None:
+        self.graph.replay()
+        kernels.add_launches(self.launches)
+
+
 class KeyPrograms:
-    """The static buffers and graphs of one (geometry, CDEF lists) key."""
+    """The static buffers and graphs of one key."""
 
     def __init__(self, calls, data):
-        self.calls = calls    # chain.stage_calls: (output names, call) x 5
-        self.data = data      # the inputs, then every stage output by name
-        self.graphs = None    # the five graphs once captured
-        self.eager = 0        # frames run eagerly
-        self.replays = 0      # frames run as five replays
+        self.calls = calls    # (output names, call reading data) per graph
+        self.data = data      # the inputs, then every call's outputs by name
+        self.graphs = None    # a Graph per call once captured
+        self.eager = 0        # runs made eagerly
+        self.replays = 0      # runs made as replays
 
 
-class ChainPrograms:
-    """The chain stages of one pipeline, by key: on a card five CUDA graphs
-    per key after the key's first frame, on the CPU the eager stages."""
+class Programs:
+    """Calls run by key: on a card CUDA graphs per key after the key's first
+    run, on the CPU the eager calls.  ``program`` names the runner in the
+    note of a failed capture."""
+
+    program = "device program"
 
     def __init__(self, device):
         self.device = torch.device(device)
         self._keys = {}
         self._pool = None
 
-    def run(self, geom, src_planes, ref_planes, aux, y_list, uv_list):
-        """The chain for one frame: src_planes 3 SB-extent planes (numpy or
-        device tensors), ref_planes ((y, u, v),) * 3 padded device planes,
-        aux the packed int32 inputs (numpy), y_list/uv_list the CDEF
-        candidate lists.  Returns (ref_out, hdr, levels): ref_out and levels
-        are copies that later runs leave alone; hdr is the static header,
-        to be copied out before the next run."""
-        k = self.key(geom, y_list, uv_list)
+    def _run(self, key, inputs: dict, make_calls) -> dict:
+        """Load ``inputs`` (name -> numpy array, tensor, or a tuple of them)
+        into the key's static buffers and run its calls (``make_calls()``,
+        asked for on the key's first run: (output names, call) pairs, each
+        call reading the buffers by name and returning its outputs in the
+        order of its names).  Returns the buffers, the calls' outputs among
+        them."""
+        k = self._keys.get(key)
         if k is None:
-            data = {
-                "src": tuple(_empty_like(a, self.device) for a in src_planes),
-                "refs": tuple(tuple(_empty_like(a, self.device) for a in r)
-                              for r in ref_planes),
-                "aux": _empty_like(aux, self.device),
-            }
-            k = KeyPrograms(stage_calls(geom, list(y_list), list(uv_list)),
-                            data)
-            self._keys[(geom, tuple(y_list), tuple(uv_list))] = k
+            k = KeyPrograms(make_calls(), {
+                name: _empty_like(a, self.device)
+                for name, a in inputs.items()})
+            self._keys[key] = k
         d = k.data
-        for dst, a in zip(d["src"], src_planes):
-            _load(dst, a)
-        for dst3, r3 in zip(d["refs"], ref_planes):
-            for dst, a in zip(dst3, r3):
-                _load(dst, a)
-        _load(d["aux"], aux)
+        for name, a in inputs.items():
+            _load(d[name], a)
         if self.device.type == "cuda" and k.eager:
             if k.graphs is None:
-                self._capture(k)
+                self._capture(key, k)
             for g in k.graphs:
                 g.replay()
             k.replays += 1
@@ -150,16 +178,9 @@ class ChainPrograms:
                     else:
                         d[name] = v
             k.eager += 1
-        return (tuple(p.clone() for p in d["ref_out"]), d["hdr"],
-                d["levels"].clone())
+        return d
 
-    def key(self, geom, y_list, uv_list):
-        """The :class:`KeyPrograms` of a key (its static buffers with the
-        last run's stage outputs by name, its graphs, its frame counts), or
-        None before the key's first frame."""
-        return self._keys.get((geom, tuple(y_list), tuple(uv_list)))
-
-    def _capture(self, k: KeyPrograms) -> None:
+    def _capture(self, key, k: KeyPrograms) -> None:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         d = k.data
@@ -168,27 +189,35 @@ class ChainPrograms:
                 torch.cuda.stream(_capture_stream(self.device)):
             for names, call in k.calls:
                 g = torch.cuda.CUDAGraph()
-                g.capture_begin(pool=self._pool,
-                                capture_error_mode="thread_local")
                 try:
-                    out = call(d)
-                except BaseException as e:
-                    e.add_note(f"while capturing the chain stage that makes "
-                               f"{', '.join(names)}")
-                    try:
+                    with kernels.counting_capture() as launches:
+                        g.capture_begin(pool=self._pool,
+                                        capture_error_mode="thread_local")
+                        try:
+                            out = call(d)
+                        except BaseException:
+                            # the capture is invalid already; the error says
+                            # why
+                            with contextlib.suppress(RuntimeError):
+                                g.capture_end()
+                            raise
                         g.capture_end()
-                    except RuntimeError:
-                        pass  # the capture is invalid already; e says why
+                except BaseException as e:
+                    e.add_note(f"while capturing the {self.program} of key "
+                               f"{key}, the graph that makes "
+                               f"{', '.join(names)}")
                     raise
-                g.capture_end()
                 d.update(zip(names, out))
-                graphs.append(g)
+                graphs.append(Graph(g, launches))
         k.graphs = graphs
 
+    def _describe(self, key) -> tuple:
+        return tuple(key)
+
     def stats(self) -> dict:
-        """Keys, keys captured, frames run eagerly and as replays, the
-        pool's bytes on the card, and per key (has_bwd, has_bwd2, y_list,
-        uv_list, eager frames, replayed frames)."""
+        """Keys, keys captured, runs made eagerly and as replays, the
+        pool's bytes on the card, and per key its description with its
+        eager and replayed runs."""
         ks = list(self._keys.values())
         return {
             "keys": len(ks),
@@ -196,8 +225,8 @@ class ChainPrograms:
             "eager": sum(k.eager for k in ks),
             "replays": sum(k.replays for k in ks),
             "pool_bytes": self.pool_bytes(),
-            "by_key": [(g.has_bwd, g.has_bwd2, y, uv, k.eager, k.replays)
-                       for (g, y, uv), k in self._keys.items()],
+            "by_key": [(*self._describe(key), k.eager, k.replays)
+                       for key, k in self._keys.items()],
         }
 
     def pool_bytes(self) -> int:
@@ -208,3 +237,90 @@ class ChainPrograms:
         pool = tuple(self._pool)
         return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
                    if tuple(s["segment_pool_id"]) == pool)
+
+
+class ChainPrograms(Programs):
+    """The chain stages of one pipeline, by (geometry, CDEF lists): five
+    graphs per key."""
+
+    program = "device chain"
+
+    def run(self, geom, src_planes, ref_planes, aux, y_list, uv_list):
+        """The chain for one frame: src_planes 3 SB-extent planes (numpy or
+        device tensors), ref_planes ((y, u, v),) * 3 padded device planes,
+        aux the packed int32 inputs (numpy), y_list/uv_list the CDEF
+        candidate lists.  Returns (ref_out, hdr, levels): ref_out and levels
+        are copies that later runs leave alone; hdr is the static header,
+        to be copied out before the next run."""
+        d = self._run(
+            (geom, tuple(y_list), tuple(uv_list)),
+            {"src": tuple(src_planes),
+             "refs": tuple(tuple(r) for r in ref_planes), "aux": aux},
+            lambda: stage_calls(geom, list(y_list), list(uv_list)))
+        return (tuple(p.clone() for p in d["ref_out"]), d["hdr"],
+                d["levels"].clone())
+
+    def key(self, geom, y_list, uv_list):
+        """The :class:`KeyPrograms` of a key (its static buffers with the
+        last run's stage outputs by name, its graphs, its frame counts), or
+        None before the key's first frame."""
+        return self._keys.get((geom, tuple(y_list), tuple(uv_list)))
+
+    def _describe(self, key):
+        g, y, uv = key
+        return (g.has_bwd, g.has_bwd2, y, uv)
+
+
+class AnalysisPrograms(Programs):
+    """The frame analysis of one pipeline, by (padded shape, bit depth,
+    has_inter, has_bwd, has_bwd2): one graph per key.  The mesh path
+    (``analysis._mesh_frame_analysis``) and the ``gaps`` diagnostics stay
+    eager."""
+
+    program = "frame analysis"
+
+    def run(self, luma, ref0, ref1, ref2, q: float, lam: float, bd: int,
+            flags):
+        """The analysis of one frame: padded planes (device tensors of any
+        integer type, as ``analysis.upload_source_luma`` makes them; the
+        references a key does not read are not copied), the ac quantizer
+        and lambda (host floats, loaded as float32), the bit depth and
+        (has_inter, has_bwd, has_bwd2).  Returns the seven outputs
+        (``analysis.analyze_finish``'s handle order) as views into one copy
+        that later runs leave alone."""
+        inputs = {"luma": luma, "qlam": np.array([q, lam], np.float32)}
+        for name, plane, used in zip(("ref0", "ref1", "ref2"),
+                                     (ref0, ref1, ref2), flags):
+            if used:
+                inputs[name] = plane
+        shape = tuple(luma.shape)
+        flags = tuple(flags)
+        d = self._run(
+            (shape, bd, *flags), inputs,
+            lambda: [(("out",), lambda d: (
+                analysis.analysis_call(d, bd, flags),))])
+        return analysis.unpack_outputs(d["out"].clone(), shape)
+
+
+class CdefPrograms(Programs):
+    """The standalone CDEF stage of one pipeline (``filters.
+    cdef_device_frame``), by (planes, grid, damping, bit depth, strength
+    lists): one graph per key."""
+
+    program = "CDEF stage"
+
+    def run(self, planes, grid, damping: int, bd: int, rec_grids, src_grids,
+            filt, y_str, uv_str):
+        """``filters.cdef_stage_core`` on host arrays (``rec_grids``,
+        ``src_grids``: a numpy plane each; ``filt``: the (nby, nbx) bool
+        map), loaded from pinned memory.  Returns (outs, idx) in the
+        runner's static memory: download them before the next run."""
+        planes, grid = tuple(planes), tuple(grid)
+        y_str, uv_str = tuple(y_str), tuple(uv_str)
+        d = self._run(
+            (planes, grid, damping, bd, y_str, uv_str),
+            {"rec": tuple(rec_grids), "src": tuple(src_grids), "filt": filt},
+            lambda: [(("outs", "idx"), lambda d: cdef_stage_core(
+                planes, grid, damping, bd, d["rec"], d["src"], d["filt"],
+                list(y_str), list(uv_str)))])
+        return d["outs"], d["idx"]

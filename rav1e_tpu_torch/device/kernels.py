@@ -18,10 +18,14 @@ launch goes to the tensors' own card, on that card's current stream (a
 mesh slot's stream, under :mod:`rav1e_tpu_torch.parallel`), and the
 wrappers refuse tensors on different devices.  Each wrapper adds one to its
 count in :data:`LAUNCHES` where it launches its kernel, and nowhere else.
+Inside a CUDA graph capture (:func:`counting_capture`) a launch is recorded
+into the graph, not run: it goes to the capture's tally, and each replay of
+the graph adds that tally to :data:`LAUNCHES` (:func:`add_launches`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
@@ -43,9 +47,38 @@ def reset_launches() -> None:
             LAUNCHES[k] = 0
 
 
+# the tally of the capture this thread runs, if any
+_capturing = threading.local()
+
+
 def _count(name: str) -> None:
+    tally = getattr(_capturing, "tally", None)
+    if tally is not None:
+        tally[name] += 1
+        return
     with _launch_lock:
         LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def counting_capture():
+    """Inside, this thread's kernel launches go into the yielded tally (name
+    -> launches) instead of :data:`LAUNCHES`: a graph capture records them,
+    and its replays run them (``device/graphs.py``)."""
+    tally = dict.fromkeys(LAUNCHES, 0)
+    outer = getattr(_capturing, "tally", None)
+    _capturing.tally = tally
+    try:
+        yield tally
+    finally:
+        _capturing.tally = outer
+
+
+def add_launches(tally: dict) -> None:
+    """Count the launches a graph replay ran."""
+    with _launch_lock:
+        for name, n in tally.items():
+            LAUNCHES[name] += n
 
 
 def _check_tensors(name: str, *tensors) -> None:

@@ -77,7 +77,10 @@ def _grid_search(src_blocks, ref_pad, base_y, base_x, seeds, blk, R, step,
 def _up2_mvs(mv, ny, nx):
     """Double a coarser MV grid (x2 px) and repeat onto the finer grid."""
     cy, cx = mv.shape[0], mv.shape[1]
-    up = (mv * 2).repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)
+    # expand + reshape, not repeat_interleave, which may size its output on
+    # the host: the analysis runs inside a CUDA graph capture
+    up = (mv * 2)[:, None, :, None].expand(cy, 2, cx, 2, 2).reshape(
+        2 * cy, 2 * cx, 2)
     ys = torch.arange(ny, device=mv.device).clamp(max=2 * cy - 1)
     xs = torch.arange(nx, device=mv.device).clamp(max=2 * cx - 1)
     return up[ys[:, None], xs[None, :]]

@@ -2286,9 +2286,18 @@ class FramePipeline:
         # the chain's stages as CUDA graphs per (geometry, CDEF lists) on a
         # card, eager into the same static buffers on the CPU; this
         # pipeline's own, as are its buffers and graph pool
-        from rav1e_tpu_torch.device.graphs import ChainPrograms
+        from rav1e_tpu_torch.device.graphs import (
+            AnalysisPrograms,
+            CdefPrograms,
+            ChainPrograms,
+        )
 
         self._chain_programs = ChainPrograms(self.device)
+        # likewise the frame analysis (one graph per padded shape, bit depth
+        # and references) and the standalone CDEF stage (one per geometry,
+        # damping and strength lists)
+        self._analysis_programs = AnalysisPrograms(self.device)
+        self._cdef_programs = CdefPrograms(self.device)
         # chain dispatched one frame early (validated at consumption):
         self._pending_chain = None
         self.rc = RCState(
@@ -2418,7 +2427,7 @@ class FramePipeline:
                     self._dev_luma(ref_fno_bwd, ref_y_bwd),
                     q_guess, lam, enc.bit_depth,
                     ref2_np=self._dev_luma(ref_fno_bwd2, ref_y_bwd2),
-                    device=self.device,
+                    device=self.device, programs=self._analysis_programs,
                 )
                 self._pending_analyses[fno] = {
                     "q": q_guess,
@@ -3004,7 +3013,7 @@ class FramePipeline:
                             rec, frame, frame_blocks, fi.bit_depth,
                             enc.chroma_sampling, enc.width, enc.height,
                             cdef_damping, cdef_y, cdef_uv,
-                            device=self.device,
+                            device=self.device, programs=self._cdef_programs,
                         )
                     )
                 cdef_state = None
@@ -3422,7 +3431,7 @@ class FramePipeline:
                         base_q_idx, lam,
                         enc.bit_depth,
                         ref2_np=self._dev_luma(fno_bwd2, ref_y_bwd2),
-                        device=self.device,
+                        device=self.device, programs=self._analysis_programs,
                     ))
                 self._retry_maps = (
                     input_frameno, base_q_idx, fi.device_maps

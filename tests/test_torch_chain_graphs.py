@@ -13,7 +13,7 @@ chain-stages and slice phases."""
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from host_reads import HostReads
 from torch_threads import one_torch_cpu_thread  # noqa: F401
 
 from rav1e_tpu_torch import tables
@@ -181,35 +181,12 @@ def test_each_cdef_list_pair_is_a_key():
     assert programs.stats()["eager"] == 3
 
 
-class _HostReads(TorchDispatchMode):
-    """Records the operations a CUDA graph capture cannot hold: a read of a
-    device value on the host, a tensor made from host data, an index by a
-    boolean mask (its size is read on the host)."""
-
-    NAMES = ("aten._local_scalar_dense", "aten.nonzero", "aten.lift_fresh",
-             "aten.masked_select", "aten.repeat_interleave.Tensor")
-
-    def __init__(self):
-        super().__init__()
-        self.found = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        name = str(func)
-        if name.startswith(self.NAMES):
-            self.found.append(name)
-        elif name.startswith(("aten.index.", "aten.index_put")) and any(
-                isinstance(i, torch.Tensor) and i.dtype == torch.bool
-                for i in (args[1] if len(args) > 1 else ()) or ()):
-            self.found.append(name + " (boolean mask)")
-        return func(*args, **(kwargs or {}))
-
-
 def test_stages_are_capturable_after_the_first_frame():
     f = _frame(64, 64, 10, Q_OTHER)
     _eager(f)  # the eager frame: makes the stages' device constants
     src = tuple(torch.from_numpy(p) for p in f["src"])
     aux = torch.from_numpy(_aux(f))
-    with _HostReads() as mode:
+    with HostReads() as mode:
         chain.run_stages(f["geom"], src, f["refs"], aux, f["y_list"],
                          f["uv_list"])
     assert mode.found == []

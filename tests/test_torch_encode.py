@@ -200,7 +200,9 @@ def _port_files():
                ROOT / "reference_cells.py",
                ROOT / "tests" / "test_torch_reference_packets.py",
                ROOT / "tests" / "test_torch_native_tile.py",
-               ROOT / "tests" / "test_torch_chain_graphs.py"])
+               ROOT / "tests" / "test_torch_chain_graphs.py",
+               ROOT / "tests" / "test_torch_analysis_graphs.py",
+               ROOT / "tests" / "host_reads.py"])
 
 
 def test_port_imports_nothing_of_rav1e_tpu():

@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """End-to-end numbers of two trees of the PyTorch port on one CUDA card, in
-turns: for the device chain as CUDA graphs against its parent.
+turns: for the replayed programs of ``rav1e_tpu_torch/device/graphs.py``
+(the chain, the frame analysis, the standalone CDEF stage) against another
+tree, such as the parent.
 
     python3 tools/chain_graphs_bench.py --other DIR
 
@@ -13,14 +15,21 @@ a warm-up, and then measures:
 
 - slice: a fresh default context (speed 6, chain on) over the 16 frames,
   host clock to a synchronize: frames/s, the ``chain_dispatch`` span (count,
-  mean and total ms) and ``chain_replay_code``; and, where the tree's
-  pipeline has ``_chain_programs``, its graph counts and pool bytes;
+  mean and total ms), ``chain_replay_code`` and ``device_analysis``; and
+  the graph counts and pool bytes of each runner the tree's pipeline has
+  (``_chain_programs``, ``_analysis_programs``, ``_cdef_programs``);
 - slice profiled: the same under torch.profiler: frames/s and the device's
   idle share (1 - the union of its activity intervals over the wall time);
+- chain off: the 16 frames with ``device_chain=False`` (the standalone CDEF
+  stage on every frame): frames/s, the ``cdef_rdo_device`` and
+  ``device_analysis`` spans, and the analysis and CDEF runners' graph
+  counts;
 - gop: chip_smoke.py's ``gop_run`` over 48 frames, keyframes every 16, with
-  3 GOP slots and serially: frames/s and host CPU seconds of each;
+  3 GOP slots and serially: frames/s and host CPU seconds of each, then the
+  serial channel again under the profiler: frames/s and idle share;
 - bench: ``python3 bench_torch.py`` of the tree: its 1080p-normalised
-  frames/s.
+  frames/s; then its first timed repetition (a new context over the
+  640x384 16-frame clip) under the profiler: frames/s and idle share.
 
 Prints the card's name and power limit and one line per process; writes
 every number to chiprun_out/chain_graphs_bench.json.
@@ -77,17 +86,33 @@ def worker() -> dict:
             wall = time.monotonic() - t0
         spans = trace.stage_summary()
         run = {"fps": len(clip) / wall, "packets": len(pkts),
-               "spans": {k: spans[k] for k in ("chain_dispatch",
-                                               "chain_replay_code")
-                         if k in spans}}
+               "spans": {k: spans[k] for k in SPANS if k in spans}}
         if profiled:
             busy_ms, _streams = cs.device_activity(prof)
             run["idle_share"] = 1.0 - busy_ms / (wall * 1e3)
-        programs = getattr(ctx.pipeline, "_chain_programs", None)
-        if programs is not None:
-            run["graphs"] = programs.stats()
+        for name in RUNNERS:
+            programs = getattr(ctx.pipeline, name, None)
+            if programs is not None:
+                run.setdefault("graphs", {})[name] = programs.stats()
         out["slice_profiled" if profiled else "slice"] = run
         del ctx, pkts
+
+    ctx = cs.slice_config(r, chain=False).new_context()
+    trace.reset()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    cs.encode(ctx, clip, r)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    spans = trace.stage_summary()
+    out["chain_off"] = {
+        "fps": len(clip) / wall,
+        "spans": {k: spans[k] for k in ("cdef_rdo_device", "device_analysis")
+                  if k in spans},
+        "graphs": {name: getattr(ctx.pipeline, name).stats()
+                   for name in RUNNERS[1:]
+                   if hasattr(ctx.pipeline, name)}}
+    del ctx
 
     gop_clip = cs.synth_clip(cs.WIDTH, cs.HEIGHT, cs.GOP_FRAMES,
                              np.random.default_rng(cs.SEED))
@@ -95,28 +120,70 @@ def worker() -> dict:
         run = cs.gop_run(r, slots, gop_clip, False)
         out[f"gop_{slots}"] = {"fps": run["fps"], "cpu_s": run["cpu"],
                                "wall_s": run["wall"]}
+    run = cs.gop_run(r, 0, gop_clip, True)
+    out["gop_0_profiled"] = {"fps": run["fps"], "idle_share": run["idle"]}
     res = subprocess.run([sys.executable, "bench_torch.py"],
                          capture_output=True, text=True, timeout=900,
                          check=True)
     out["bench"] = json.loads(res.stdout.strip().splitlines()[-1])["value"]
+
+    import bench_torch
+    import reference_cells
+
+    cell = reference_cells.CELLS["bench clip"]
+    clip = bench_torch.clip_runs(cell)[1]
+    ctx = r.Config(enc=reference_cells.encoder_config(r, cell),
+                   device="cuda").new_context()
+    frames = [bench_torch._frame(ctx, planes) for planes in clip]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for f in frames:
+            ctx.send_frame(f)
+        reference_cells.drain(ctx, r)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    busy_ms, _streams = cs.device_activity(prof)
+    out["bench_profiled"] = {"fps": len(clip) / wall,
+                             "idle_share": 1.0 - busy_ms / (wall * 1e3)}
     return out
+
+
+# the slice's spans kept: the chain's dispatch and replay coder, and the
+# analysis's fetch or synchronous run
+SPANS = ("chain_dispatch", "chain_replay_code", "device_analysis")
+# the pipeline's runners of replayed programs (device/graphs.py), where the
+# tree has them
+RUNNERS = ("_chain_programs", "_analysis_programs", "_cdef_programs")
 
 
 def line(label, m) -> str:
     s, sp = m["slice"], m["slice"]["spans"]
     cd = sp.get("chain_dispatch", {})
-    g = s.get("graphs")
+    da = sp.get("device_analysis", {})
+    graphs = {name: {k: v for k, v in g.items() if k != "by_key"}
+              for name, g in s.get("graphs", {}).items()}
+    off = m["chain_off"]
+    cdef = off["spans"].get("cdef_rdo_device", {})
+    off_graphs = {name: {k: v for k, v in g.items() if k != "by_key"}
+                  for name, g in off["graphs"].items()}
     return (f"{label}: slice {s['fps']:.4f} frames/s, chain_dispatch "
             f"count={cd.get('count')} mean_ms={cd.get('mean_ms')} "
-            f"total_ms={cd.get('total_ms')}; profiled "
+            f"total_ms={cd.get('total_ms')}, device_analysis "
+            f"count={da.get('count')} mean_ms={da.get('mean_ms')}; profiled "
             f"{m['slice_profiled']['fps']:.4f} frames/s, idle share "
-            f"{m['slice_profiled']['idle_share']:.6f}; gop 3 slots "
+            f"{m['slice_profiled']['idle_share']:.6f}; chain off "
+            f"{off['fps']:.4f} frames/s, cdef_rdo_device count="
+            f"{cdef.get('count')} mean_ms={cdef.get('mean_ms')}, graphs "
+            f"{off_graphs}; gop 3 slots "
             f"{m['gop_3']['fps']:.4f} frames/s (host CPU "
             f"{m['gop_3']['cpu_s']:.3f} s), serial {m['gop_0']['fps']:.4f} "
-            f"frames/s (host CPU {m['gop_0']['cpu_s']:.3f} s); bench_torch "
-            f"{m['bench']}"
-            + (f"; graphs { {k: v for k, v in g.items() if k != 'by_key'} }"
-               if g else ""))
+            f"frames/s (host CPU {m['gop_0']['cpu_s']:.3f} s), serial "
+            f"profiled {m['gop_0_profiled']['fps']:.4f} frames/s, idle share "
+            f"{m['gop_0_profiled']['idle_share']:.6f}; bench_torch "
+            f"{m['bench']}, profiled {m['bench_profiled']['fps']:.4f} "
+            f"frames/s at 640x384, idle share "
+            f"{m['bench_profiled']['idle_share']:.6f}; graphs {graphs}")
 
 
 def main() -> int:
