@@ -14,9 +14,14 @@ tests/data/torch_reference_packets.json holds from rav1e_tpu.  The
 ``--device`` and size options are for a smoke run on the CPU only: the
 number is the card's.
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}, with
-vs_baseline against bench.py's assumed 30 frames/s of AVX2 rav1e at speed 6
-and 1080p (BASELINE.md).
+Prints, on the line before the last, ``repetitions`` and a JSON list with
+each timed repetition's seconds and its context's runs of each replayed
+program (``FramePipeline.program_stats``: eager, capturing and replayed,
+per runner), and as the last line bench.py's JSON: {"metric", "value",
+"unit", "vs_baseline"}, with vs_baseline against bench.py's assumed 30
+frames/s of AVX2 rav1e at speed 6 and 1080p (BASELINE.md).  The contexts
+of one process share their replayed programs (``device/graphs.py``
+``STORE``), as bench.py's share their compiled ones.
 """
 
 from __future__ import annotations
@@ -76,7 +81,7 @@ def main(argv=None):
         warm.send_frame(_frame(warm, planes))
     reference_cells.drain(warm, r)
 
-    best_dt = None
+    reps = []
     for clip in runs[1:]:
         ctx = new_context()
         frames = [_frame(ctx, planes) for planes in clip]
@@ -84,11 +89,13 @@ def main(argv=None):
         for f in frames:
             ctx.send_frame(f)
         reference_cells.drain(ctx, r)
-        dt = time.monotonic() - t0
-        if best_dt is None or dt < best_dt:
-            best_dt = dt
+        reps.append({"seconds": time.monotonic() - t0} | {
+            name: {k: v for k, v in st.items() if k != "set"}
+            for name, st in ctx.pipeline.program_stats().items()})
 
+    best_dt = min(rep["seconds"] for rep in reps)
     fps_1080p = (w * h * n) / best_dt / (1920 * 1080)
+    print("repetitions " + json.dumps(reps))
     print(json.dumps({
         "metric": "encode throughput (1080p-normalized)",
         "value": round(fps_1080p, 4),

@@ -22,12 +22,14 @@ Phases, each printing one line with its time:
    device reconstruction chain on, pyramid reordering); prints the frames
    the chain coded, its overflow and replay-divergence fallbacks and its
    predispatch hits; at least one inter frame is chain-coded, and both
-   kernels were launched by the encode; prints the pipeline's chain graphs
-   (device/graphs.py: keys, captures, eager and replayed frames, the
-   pool's bytes) and fails unless every chain frame after its key's first
-   was five graph replays, and likewise for the analysis and CDEF graphs
-   (every run after its key's first a replay); every packet decodes to
-   its reconstruction through rav1e_tpu_torch.decoder;
+   kernels were launched by the encode; prints the pipeline's runs of its
+   replayed programs (device/graphs.py: its own eager, capturing and
+   replayed runs, and its set's keys, captures, replays and pool bytes,
+   over every pipeline that held the set) and fails unless every chain
+   frame was a run of the pipeline's set and no key of the set ran
+   eagerly or was captured twice, for the chain, analysis and CDEF
+   runners alike; every packet decodes to its reconstruction through
+   rav1e_tpu_torch.decoder;
 5. chain-off tier: the same preset with device_chain=False over the first
    4 frames (every frame through the host tile coder and the standalone
    CDEF stage), with the same launch, graph and decode checks, and each
@@ -72,7 +74,11 @@ Phases, each printing one line with its time:
    serial channel over the same frames for the numbers only; each channel
    timed without and then under the profiler, in turns: frames/s, host CPU
    time, and under the profiler the device idle share (its busy time over
-   the wall time) and the most CUDA streams busy at once;
+   the wall time) and the most CUDA streams busy at once; then more chunks
+   than slots: bench.py's clip settings (640x384) over 48 frames with a
+   key frame every 8 on 3 slots, whose packets equal each chunk encoded
+   alone, through at most 3 sets of runners, no key of a set captured
+   twice, and chunks 4-6 running no key eagerly;
 11. capi: the port's C shim and example (``rav1e_tpu_torch/capi/``) built
    with g++ and the Python embed flags, run with "cuda" and with "cpu":
    the packet lines must be identical;
@@ -81,17 +87,22 @@ Phases, each printing one line with its time:
    configurations (10 and 12 bit, 4:2:2, 4:4:4, 2x2 tiles, low latency,
    speeds 8, 9 and 10, and a ragged clip, here 200x136); then its 4 fuzz
    seeds through ``fuzz_encode_decode`` on the card; prints each
-   configuration's chain frames, chain graphs (keys, captures, replays;
-   every key eager only on its first frame) and kernel launches;
+   configuration's chain frames, runs of the replayed programs (no key of
+   a set eager or captured twice) and kernel launches;
 13. reference: every cell of reference_cells.py, the
    640x384 16-frame bench clip included, encoded on the card with the
    kernels on gives rav1e_tpu's packets byte for byte (their hashes in
    tests/data/torch_reference_packets.json, made by
    tools/torch_reference_packets.py), and every packet decodes to its
    reconstruction; prints per cell the packets, the chain frames, the
-   chain graphs (as in the configs phase) and the kernel launches; a
-   differing cell is encoded on the CPU too, to say
-   whether the card or the port differs;
+   runs of the replayed programs (as in the configs phase) and the kernel
+   launches; a differing cell is encoded on the CPU too, to say
+   whether the card or the port differs; then the 17 small cells once
+   more in reverse order, through the sets of runners the first pass left
+   in the process's store (configurations that share keys replay each
+   other's graphs): the same packets, spans and launches, no key run
+   eagerly, and a capture only of a key the first pass ran once; prints
+   the store's sets after each pass;
 14. mesh: ``make_mesh(4, devices=["cuda:0"] * 4)``, four slots of the card,
    each band on a stream of its own: sharded_frame_analysis and
    sharded_inter_analysis on a 1024x1920 frame pair equal the same calls
@@ -101,7 +112,12 @@ Phases, each printing one line with its time:
    the unsharded encode's packets, which decode; prints both encodes'
    frames/s and kernel launches beside the card's name and power limit;
 15. bench: ``python3 bench_torch.py`` (bench.py's workload through the
-   port on the card) in a subprocess; prints its JSON line.
+   port on the card) in a subprocess; prints each timed repetition's
+   seconds and runs of the replayed programs, of which the second and
+   third must run no key eagerly and capture none, and its JSON line;
+16. launches: every phase's satd8 and grid_search launches equal those of
+   every earlier card run (``LAUNCHES_BY_PHASE``); store: the process's
+   sets of runners and their pools' bytes.
 
 The line before the last is the kernels' JSON summary, preceded by
 nvidia-smi's name and power limit; the last line is
@@ -138,6 +154,12 @@ PEAK_OPS_PER_S = 67e12  # H100 SXM non-tensor float32 rate
 SATD_OPS_PER_CELL = 16 * 24 + 64 + 64
 # a kernel's time: the median of this many CUDA-event timings of 20 calls
 KERNEL_RUNS = 5
+# (satd8, grid_search) launches of each phase's encode on the card, which
+# every card run has given (PERF.md, section 6): a replay counts the
+# launches its graph holds, so neither graphs nor their store moves them
+LAUNCHES_BY_PHASE = {"slice": (94, 120), "cli": (94, 120),
+                     "chain-off": (19, 12), "gop": (282, 360),
+                     "mesh": (76, 48), "reference": (433, 340)}
 
 
 def fail(msg: str) -> None:
@@ -478,12 +500,12 @@ def check_cdef_replays(programs):
 def encode_phase(rav1e_tpu_torch, clip, chain, label):
     """Encode ``clip`` through the preset on the card with the kernels'
     launch counts set to 0 just before and read just after; returns the
-    packets, the launch counts, the stage spans and the pipeline's chain
-    graph counts (``ChainPrograms.stats``), which must show every chain
-    frame after its key's first replayed, as the analysis and CDEF graph
-    counts must show every analysis and CDEF stage after its key's first.
-    With the chain off each CDEF replay is held against the eager stage
-    (:func:`check_cdef_replays`)."""
+    packets, the launch counts, the stage spans and the pipeline's runs of
+    its replayed programs (``FramePipeline.program_stats``), which must
+    show every chain frame after its key's first in its set replayed, as
+    the analysis and CDEF runs must show every run after its key's first
+    (:func:`graph_counts`).  With the chain off each CDEF replay is held
+    against the eager stage (:func:`check_cdef_replays`)."""
     import torch
 
     from rav1e_tpu_torch.device import kernels
@@ -503,6 +525,9 @@ def encode_phase(rav1e_tpu_torch, clip, chain, label):
     launches = dict(kernels.LAUNCHES)
     spans = trace.stage_summary()
     trace.reset()
+    if cdef_check is not None:
+        # the set goes on to later pipelines without the check
+        del ctx.pipeline._cdef_programs.run
     n = len(clip)
     phase(label, t, f"{len(pkts)} packets, {n} frames in {enc_s:.3f} s = "
           f"{n / enc_s:.4f} frames/s at {WIDTH}x{HEIGHT}; launches {launches}")
@@ -518,29 +543,15 @@ def encode_phase(rav1e_tpu_torch, clip, chain, label):
     if ctx.pipeline.device.type != "cuda":
         fail(f"{label}: the default Config ran on {ctx.pipeline.device}, "
              "not the card")
-    graphs = ctx.pipeline._chain_programs.stats()
     frames = span_count(spans, "chain_dispatch")
-    print(f"  graphs: {frames} chain frames, {graphs['keys']} keys, "
-          f"{graphs['captured']} captured (5 graphs each), "
-          f"{graphs['eager']} eager frames, {graphs['replays']} replayed, "
-          f"pool {graphs['pool_bytes']} bytes", flush=True)
-    for has_bwd, has_bwd2, y, uv, eager, replays in graphs["by_key"]:
-        print(f"    key has_bwd={has_bwd} has_bwd2={has_bwd2} y_list={y} "
-              f"uv_list={uv}: {eager} eager, {replays} replayed", flush=True)
-    if (graphs["eager"] != graphs["keys"]
-            or graphs["eager"] + graphs["replays"] != frames):
-        fail(f"{label}: a chain frame after its key's first was not a "
-             f"replay ({frames} chain frames, {graphs})")
-    for name, st in runner_stats(ctx).items():
-        print(f"  {name} graphs: {st['keys']} keys, {st['captured']} "
-              f"captured, {st['eager']} eager runs, {st['replays']} "
-              f"replayed, pool {st['pool_bytes']} bytes", flush=True)
-        for *key, eager, replays in st["by_key"]:
-            print(f"    key {tuple(key)}: {eager} eager, {replays} replayed",
-                  flush=True)
-        if st["eager"] != st["keys"]:
-            fail(f"{label}: a {name} run after its key's first was not a "
-                 f"replay ({st})")
+    report, err = graph_counts(ctx, frames, exact=True)
+    print(f"  {frames} chain frames; {report}", flush=True)
+    for name, st in ctx.pipeline.program_stats().items():
+        for *key, eager, replays in st["set"]["by_key"]:
+            print(f"    {name} key {tuple(key)}: {eager} eager, {replays} "
+                  "replayed in its set", flush=True)
+    if err:
+        fail(f"{label}: {err}")
     if cdef_check is not None:
         verdicts, runs = cdef_check
         if not verdicts or not all(verdicts):
@@ -550,34 +561,47 @@ def encode_phase(rav1e_tpu_torch, clip, chain, label):
               "host ms to enqueue (loads from pinned memory included): "
               + ", ".join(f"{kind} {ms:.3f}" for kind, ms in runs),
               flush=True)
-    return pkts, launches, spans, graphs
-
-
-def runner_stats(ctx):
-    """The stats of a context's analysis and CDEF runners."""
-    p = ctx.pipeline
-    return {"analysis": p._analysis_programs.stats(),
-            "CDEF": p._cdef_programs.stats()}
+    return pkts, launches, spans, ctx.pipeline.program_stats()
 
 
 def span_count(spans, name):
     return spans[name]["count"] if name in spans else 0
 
 
-def graph_counts(ctx, chain_frames):
-    """The pipeline's chain, analysis and CDEF graphs as a short report,
-    and a fault when a key ran eagerly more than once or fewer frames were
-    dispatched than ``chain_frames`` were coded by the chain."""
-    g = ctx.pipeline._chain_programs.stats()
-    report = (f"graphs: {g['keys']} keys, {g['captured']} captured, "
-              f"{g['replays']} replayed")
-    if g["eager"] != g["keys"] or g["eager"] + g["replays"] < chain_frames:
-        return report, f"chain graphs {g} for {chain_frames} chain frames"
-    for name, st in runner_stats(ctx).items():
-        report += (f"; {name} graphs: {st['keys']} keys, {st['captured']} "
-                   f"captured, {st['replays']} replayed")
-        if st["eager"] != st["keys"]:
-            return report, f"{name} graphs {st}: a key ran eagerly twice"
+def set_fault(name, st):
+    """A fault of a runner's stats over every pipeline that held its set:
+    on the card each key runs eagerly once and is captured at most once."""
+    if st["eager"] != st["keys"] or st["captures"] != st["captured"]:
+        return f"{name} set {st}: a key ran eagerly or was captured twice"
+    return None
+
+
+def graph_counts(ctx, chain_frames, exact=False):
+    """The pipeline's runs of its replayed programs (its own eager,
+    capturing and replayed runs, and its sets' totals) as a short report,
+    and a fault: a key of a set that ran eagerly or was captured twice, or
+    fewer chain runs (``exact``: other than) than the ``chain_frames`` the
+    pipeline dispatched or coded by the chain."""
+    stats = ctx.pipeline.program_stats()
+    parts = []
+    for name, st in stats.items():
+        s = st["set"]
+        parts.append(
+            f"{name}: {st['eager']} eager, {st['captures']} capturing, "
+            f"{st['replays']} replayed (set: {s['keys']} keys, "
+            f"{s['captured']} captured, {s['replays']} replayed, pool "
+            f"{s['pool_bytes']} bytes)")
+    report = "; ".join(parts) or "no device run"
+    for name, st in stats.items():
+        err = set_fault(name, st["set"])
+        if err:
+            return report, err
+    runs = (stats["chain"]["eager"] + stats["chain"]["replays"] if stats
+            else 0)
+    if (runs != chain_frames) if exact else (runs < chain_frames):
+        return report, (f"{runs} chain runs for {chain_frames} chain frames:"
+                        " a chain frame after its key's first was not a "
+                        "replay")
     return report, None
 
 
@@ -1376,8 +1400,89 @@ def gop_phase(r, decoders):
         steps.append(f"stop {run['stop_s']:.1f} s"
                      + (f" parse {run['parse_s']:.1f} s" if run["profiled"]
                         else ""))
+    t = time.monotonic()
+    lines += gop_chunks_case(r)
+    steps.append(f"chunks case {time.monotonic() - t:.1f} s")
     lines.append("steps: " + "; ".join(steps))
     return lines, runs[0][1]["launches"], decoded
+
+
+# more chunks than slots: bench.py's clip settings over 48 frames with a
+# key frame every 8, on 3 slots, so chunks 4-6 take the sets chunks 1-3
+# returned
+CHUNKS_FRAMES, CHUNKS_LEN = 48, 8
+
+
+def gop_chunks_case(r):
+    """bench.py's clip settings (reference_cells.py's ``bench clip``, 48
+    frames of its pan, a key frame every 8) through 3 GOP slots: the
+    packets equal each chunk encoded alone, the chunks' contexts hold at
+    most 3 sets, no key of a set is captured twice, and the 4th to 6th
+    contexts the channel makes (chunks 4-6, taken in order from its queue)
+    run no key eagerly.  Returns the report lines."""
+    cell = reference_cells.CELLS["bench clip"]
+    w, h = cell["width"], cell["height"]
+    clip = reference_cells.pan_runs(w, h, [CHUNKS_FRAMES],
+                                    np.random.default_rng(cell["seed"]))[0]
+
+    def config(slots):
+        enc = reference_cells.encoder_config(r, cell)
+        enc.min_key_frame_interval = enc.max_key_frame_interval = CHUNKS_LEN
+        return r.Config(enc=enc, device="cuda", parallel_gops=slots)
+
+    cfg = config(GOP_SLOTS)
+    made = []
+
+    def new_context(make=cfg.new_context):
+        ctx = make()
+        made.append(ctx)
+        return ctx
+
+    cfg.new_context = new_context
+    t = time.monotonic()
+    par = channel_encode(cfg, clip)
+    par_s = time.monotonic() - t
+    chunks = [c.pipeline for c in made[1:]]  # made[0]: the template
+    n = CHUNKS_FRAMES // CHUNKS_LEN
+    lines = [f"{n} chunks of {CHUNKS_LEN} frames at {w}x{h} on {GOP_SLOTS} "
+             f"slots: {CHUNKS_FRAMES / par_s:.4f} frames/s"]
+    alone = []
+    for c in range(n):
+        ctx = config(0).new_context()
+        chunk = encode(ctx, clip[c * CHUNKS_LEN : (c + 1) * CHUNKS_LEN], r)
+        for p in chunk:
+            p.input_frameno += c * CHUNKS_LEN
+        alone += chunk
+    if len(par) != len(alone) or any(
+            (a.data, a.input_frameno) != (b.data, b.input_frameno)
+            for a, b in zip(par, alone)):
+        fail(f"gop: the {n} chunks on {GOP_SLOTS} slots differ from the "
+             "chunks encoded alone")
+    if made[0].pipeline._programs is not None or len(chunks) != n:
+        fail(f"gop: {len(chunks)} chunk contexts for {n} chunks, or the "
+             "template context holds a set")
+    sets = {id(p._programs): p._programs for p in chunks}
+    if len(sets) > GOP_SLOTS:
+        fail(f"gop: {len(sets)} sets for {GOP_SLOTS} slots")
+    for i, p in enumerate(chunks):
+        own = {k: {m: v for m, v in st.items() if m != "set"}
+               for k, st in p.program_stats().items()}
+        lines.append(f"chunk context {i + 1}: set "
+                     f"{list(sets).index(id(p._programs))}, {own}")
+        eager = {k: v["eager"] for k, v in own.items() if v["eager"]}
+        if i >= GOP_SLOTS and eager:
+            fail(f"gop: chunk context {i + 1} ran keys eagerly: {eager}")
+    for i, pset in enumerate(sets.values()):
+        for name, st in pset.stats().items():
+            err = set_fault(name, st)
+            if err:
+                fail(f"gop: set {i}: {err}")
+            lines.append(f"set {i} {name}: {st['keys']} keys, "
+                         f"{st['captures']} captures, {st['replays']} "
+                         f"replays, pool {st['pool_bytes']} bytes")
+    lines.append(f"{len(par)} packets of {GOP_SLOTS} slots equal the {n} "
+                 f"chunks encoded alone, through {len(sets)} sets")
+    return lines
 
 
 def gop_decode_check(decoded):
@@ -1473,6 +1578,79 @@ def configs_phase(r, dev):
 STORE = os.path.join(ROOT, "tests", "data", "torch_reference_packets.json")
 
 
+def reference_cell(r, dev, name, want):
+    """Cell ``name`` encoded on the card against rav1e_tpu's stored record
+    ``want``: (report line, faults, kernel launches, the pipeline's own
+    runs of each replayed program)."""
+    from rav1e_tpu_torch.device import kernels
+
+    cell = reference_cells.CELLS[name]
+    bad = []
+    t = time.monotonic()
+    kernels.reset_launches()
+    pkts, ctx, spans = reference_cells.encode_traced(r, name, device=dev)
+    launches = dict(kernels.LAUNCHES)
+    graphs, graph_err = graph_counts(ctx, spans["chain_replay_code"])
+    own = {k: {n: v for n, v in st.items() if n != "set"}
+           for k, st in ctx.pipeline.program_stats().items()}
+    del ctx
+    if graph_err:
+        bad.append(f"{name}: {graph_err}")
+    enc_s = time.monotonic() - t
+    got = [reference_cells.packet_record(p) for p in pkts]
+    err = reference_cells.first_difference(got, want["packets"])
+    if err:
+        cpu, _, _ = reference_cells.encode_traced(r, name, device="cpu")
+        cpu_err = reference_cells.first_difference(
+            [reference_cells.packet_record(p) for p in cpu], want["packets"])
+        bad.append(f"{name}: {err}; on the CPU "
+                   + (f"the port differs too: {cpu_err}" if cpu_err
+                      else "the port gives rav1e_tpu's packets, so the card "
+                      "differs"))
+    t = time.monotonic()
+    dec_err = decode_mismatch(decode_triples(pkts))
+    if dec_err:
+        bad.append(f"{name}: {dec_err}")
+    inter = any(p["frame_type"] != "KEY" for p in want["packets"])
+    for k, need in (("satd8", True), ("grid_search", inter)):
+        if need and launches.get(k, 0) <= 0:
+            bad.append(f"{name}: kernel {k} was not launched")
+    if spans != want["spans"]:
+        bad.append(f"{name}: stage spans {spans}, rav1e_tpu's "
+                   f"{want['spans']}")
+    if spans["device_analysis"] < 1:
+        bad.append(f"{name}: no device analysis")
+    if cell["chain"] and spans["chain_replay_code"] < 1:
+        bad.append(f"{name}: no frame was coded by the chain")
+    line = (f"{name:24s} {len(pkts)} packets "
+            f"{'== rav1e_tpu' if not err else 'DIFFER'}; chain frames "
+            f"{spans['chain_replay_code']} (overflow "
+            f"{spans['chain_overflow']}, diverged {spans['chain_diverged']}"
+            f"); {graphs}; launches {launches}; encode {enc_s:.3f} s, decode "
+            f"{time.monotonic() - t:.3f} s")
+    return line, bad, launches, own
+
+
+def store_report(dev):
+    """The store's sets on ``dev`` (``device/graphs.py`` ``STORE``): per set
+    and runner its keys, captures and replays, and the pools' bytes; and
+    the keys that ran once (eagerly, never captured)."""
+    from rav1e_tpu_torch.device import graphs
+
+    st = graphs.STORE.stats(dev)
+    once = 0
+    parts = []
+    for i, sset in enumerate(st["by_set"]):
+        for name, s in sset.items():
+            once += sum(1 for *_, eager, replays in s["by_key"]
+                        if eager == 1 and replays == 0)
+            parts.append(f"set {i} {name}: {s['keys']} keys, "
+                         f"{s['captures']} captures, {s['replays']} replays, "
+                         f"pool {s['pool_bytes']} bytes")
+    return (f"{st['sets']} sets ({st['in_use']} in use), pools "
+            f"{st['pool_bytes']} bytes; " + "; ".join(parts)), once, st
+
+
 def reference_phase(r, dev):
     """Every cell of reference_cells.py, the 640x384 16-frame bench clip
     included, encoded on the card with the kernels on: every packet's hash
@@ -1482,66 +1660,53 @@ def reference_phase(r, dev):
     chain in each cell where it runs, satd8 in every cell and grid_search
     in each cell with inter frames, with rav1e_tpu's count of each stage
     span.  Where a cell differs, the same cell
-    encoded on the CPU says whether the card or the port differs.  Returns
-    the report and the launches summed over the cells."""
-    from rav1e_tpu_torch.device import kernels
-
+    encoded on the CPU says whether the card or the port differs.  Then the
+    small cells once more, in reverse order, through the sets of runners
+    the first pass left in the store: the same packets, spans and launches,
+    no key run eagerly, and a capture only of a key the first pass ran
+    once (a key's capture is its second run).  Returns the report and the
+    launches of the first pass summed over the cells."""
     with open(STORE) as f:
         store = json.load(f)["cells"]
     missing = [n for n in reference_cells.CELLS if n not in store]
     if missing:
         fail(f"reference: the store has no packets for {missing}")
-    lines, bad, total = [], [], {}
+    lines, bad, total, by_cell = [], [], {}, {}
     for name, cell in reference_cells.CELLS.items():
         want = store[name]
         if want["settings"] != cell:
             bad.append(f"{name}: the store was made for other settings")
             continue
-        t = time.monotonic()
-        kernels.reset_launches()
-        pkts, ctx, spans = reference_cells.encode_traced(r, name,
-                                                         device=dev)
-        launches = dict(kernels.LAUNCHES)
-        graphs, graph_err = graph_counts(ctx, spans["chain_replay_code"])
-        del ctx
-        if graph_err:
-            bad.append(f"{name}: {graph_err}")
-        enc_s = time.monotonic() - t
+        line, errs, launches, _ = reference_cell(r, dev, name, want)
+        lines.append(line)
+        bad += errs
+        by_cell[name] = launches
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
-        got = [reference_cells.packet_record(p) for p in pkts]
-        err = reference_cells.first_difference(got, want["packets"])
-        if err:
-            cpu, _, _ = reference_cells.encode_traced(r, name, device="cpu")
-            cpu_err = reference_cells.first_difference(
-                [reference_cells.packet_record(p) for p in cpu],
-                want["packets"])
-            bad.append(f"{name}: {err}; on the CPU "
-                       + (f"the port differs too: {cpu_err}" if cpu_err
-                          else "the port gives rav1e_tpu's packets, so "
-                          "the card differs"))
-        t = time.monotonic()
-        dec_err = decode_mismatch(decode_triples(pkts))
-        if dec_err:
-            bad.append(f"{name}: {dec_err}")
-        inter = any(p["frame_type"] != "KEY" for p in want["packets"])
-        for k, need in (("satd8", True), ("grid_search", inter)):
-            if need and launches.get(k, 0) <= 0:
-                bad.append(f"{name}: kernel {k} was not launched")
-        if spans != want["spans"]:
-            bad.append(f"{name}: stage spans {spans}, rav1e_tpu's "
-                       f"{want['spans']}")
-        if spans["device_analysis"] < 1:
-            bad.append(f"{name}: no device analysis")
-        if cell["chain"] and spans["chain_replay_code"] < 1:
-            bad.append(f"{name}: no frame was coded by the chain")
-        lines.append(
-            f"{name:24s} {len(pkts)} packets "
-            f"{'== rav1e_tpu' if not err else 'DIFFER'}; chain frames "
-            f"{spans['chain_replay_code']} (overflow "
-            f"{spans['chain_overflow']}, diverged {spans['chain_diverged']}"
-            f"); {graphs}; launches {launches}; encode {enc_s:.3f} s, decode "
-            f"{time.monotonic() - t:.3f} s")
+    report, once, _ = store_report(dev)
+    lines.append(f"after the first pass: {report}; {once} keys ran once")
+    captures = 0
+    for name in reversed(reference_cells.small_cells()):
+        if name not in by_cell:
+            continue
+        line, errs, launches, own = reference_cell(r, dev, name, store[name])
+        lines.append("second pass " + line)
+        bad += [f"second pass {e}" for e in errs]
+        if launches != by_cell[name]:
+            bad.append(f"{name}: second pass launches {launches}, first "
+                       f"{by_cell[name]}")
+        eager = {k: v["eager"] for k, v in own.items() if v["eager"]}
+        if eager:
+            bad.append(f"{name}: the second pass ran keys eagerly: {eager}")
+        captures += sum(v["captures"] for v in own.values())
+    report, _, st = store_report(dev)
+    lines.append(f"after the second pass: {report}; {captures} captures in "
+                 f"the second pass, of {once} keys the first ran once")
+    if captures > once:
+        bad.append(f"the second pass made {captures} captures, more than "
+                   f"the {once} keys the first pass ran once")
+    for sset in st["by_set"]:
+        bad += [e for name, s in sset.items() if (e := set_fault(name, s))]
     for line in lines:
         print("  " + line, flush=True)
     if bad:
@@ -1648,16 +1813,26 @@ def mesh_phase(r, clip, info):
 
 def bench_phase():
     """``python3 bench_torch.py`` (bench.py's workload through the port on
-    the card) in a subprocess: its one JSON line."""
+    the card) in a subprocess: its JSON line, after each repetition's
+    seconds and runs of the replayed programs, of which the second and
+    third repetitions must run no key eagerly and capture none (their
+    contexts replay what the warm-up and the first repetition captured)."""
     out = subprocess.run([sys.executable, os.path.join(ROOT, "bench_torch.py")],
                          cwd=ROOT, env=subprocess_env(), capture_output=True,
                          text=True, timeout=600)
     if out.returncode != 0:
         fail(f"bench: exit code {out.returncode}\n{out.stderr[-3000:]}")
-    line = out.stdout.strip().splitlines()[-1]
+    *_, reps_line, line = out.stdout.strip().splitlines()
     result = json.loads(line)
     if not result.get("value", 0) > 0:
         fail(f"bench: no throughput in {line}")
+    reps = json.loads(reps_line.removeprefix("repetitions "))
+    for i, rep in enumerate(reps):
+        print(f"  repetition {i + 1}: {rep}", flush=True)
+        if i > 0 and any(rep[k]["eager"] or rep[k]["captures"]
+                         for k in ("chain", "analysis", "CDEF")):
+            fail(f"bench: repetition {i + 1} ran a key eagerly or captured "
+                 f"one: {rep}")
     return line
 
 
@@ -1745,8 +1920,8 @@ def main() -> int:
           f"{len(shown)} shown frames to the CLI's reconstruction")
     del shown
 
-    off_pkts, _, off_spans, _ = encode_phase(rav1e_tpu_torch, clip[:4],
-                                             False, "chain-off")
+    off_pkts, off_launches, off_spans, _ = encode_phase(
+        rav1e_tpu_torch, clip[:4], False, "chain-off")
     if span_count(off_spans, "chain_dispatch"):
         fail("chain-off: the chain ran with device_chain=False")
     t = time.monotonic()
@@ -1803,8 +1978,10 @@ def main() -> int:
         ref = guarded("reference", failed,
                       lambda: reference_phase(rav1e_tpu_torch, dev))
         if ref:
-            phase("reference", t, f"{len(ref[0])} cells == rav1e_tpu's "
-                  "packets on the card, and decode")
+            phase("reference", t, f"{len(reference_cells.CELLS)} cells, "
+                  f"then {len(reference_cells.small_cells())} again through "
+                  "the stored runners, == rav1e_tpu's packets on the card, "
+                  "and decode")
 
         if gop:
             t = time.monotonic()
@@ -1830,6 +2007,20 @@ def main() -> int:
     gop_launches = gop[1]
     mesh_launches = mesh[1]
     ref_launches = ref[1]
+    by_phase = {"slice": launches, "cli": cli_launches,
+                "chain-off": off_launches, "gop": gop_launches,
+                "mesh": mesh_launches, "reference": ref_launches}
+    moved = {k: (v["satd8"], v["grid_search"]) for k, v in by_phase.items()
+             if (v["satd8"], v["grid_search"]) != LAUNCHES_BY_PHASE[k]}
+    if moved:
+        fail(f"launches (satd8, grid_search) moved: {moved}, against "
+             f"{LAUNCHES_BY_PHASE}")
+    t = time.monotonic()
+    from rav1e_tpu_torch.device import graphs
+
+    st = graphs.STORE.stats(dev)
+    phase("store", t, f"{st['sets']} sets of replayed programs on the card "
+          f"({st['in_use']} in use), pools {st['pool_bytes']} bytes")
 
     # the PyTorch port imports nothing of the JAX package
     ref_mods = sorted(m for m in sys.modules
@@ -1848,11 +2039,7 @@ def main() -> int:
         out["kernels"].append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches[name],
-            "launches_by_phase": {"slice": launches[name],
-                                  "cli": cli_launches[name],
-                                  "gop": gop_launches[name],
-                                  "mesh": mesh_launches[name],
-                                  "reference": ref_launches[name]},
+            "launches_by_phase": {k: v[name] for k, v in by_phase.items()},
             "max_abs_err": s["max_abs_err"],
             "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],

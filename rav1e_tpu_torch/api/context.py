@@ -75,7 +75,12 @@ class Context:
         Raises ``EncoderStatus.NeedMoreData`` when more input is required,
         ``EncoderStatus.LimitReached`` when flushing completes.
         """
-        return self.inner.receive_packet(self.pipeline, self.is_flushing)
+        try:
+            return self.inner.receive_packet(self.pipeline, self.is_flushing)
+        except EncoderStatus.LimitReached:
+            # the stream has ended: the pipeline runs no more
+            self.pipeline.release_programs()
+            raise
 
     def flush(self) -> None:
         self.send_frame(None)

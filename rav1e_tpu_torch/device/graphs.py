@@ -14,14 +14,14 @@ counterparts of the reference's compiled programs.
 
 Run eagerly, a bidirectional 1080p chain frame is some 14,500 PyTorch
 launches and an analysis 2,300-9,100, and the host launching them, not the
-card, sets the pace.  A runner, one of each per ``FramePipeline``, keeps for
-every key static input buffers into which each run copies its inputs.  The
-first run of a key runs the key's calls eagerly; that also makes every
-device constant they read (``constants.device_cache``) and launches every
-kernel they use, which a capture cannot do.  The second run captures each
-call as a graph, on a side stream, into the runner's memory pool, and from
-then on a run is a replay per call on the pipeline's current stream.  A
-call's outputs stay in the pool, where the next call's graph reads them.
+card, sets the pace.  A runner keeps for every key static input buffers
+into which each run copies its inputs.  The first run of a key runs the
+key's calls eagerly; that also makes every device constant they read
+(``constants.device_cache``) and launches every kernel they use, which a
+capture cannot do.  The second run captures each call as a graph, on a side
+stream, into the runner's memory pool, and from then on a run is a replay
+per call on the pipeline's current stream.  A call's outputs stay in the
+pool, where the next call's graph reads them.
 
 What must outlive the next replay is copied out right after the replay, by
 the runner or its caller: the chain's padded reconstruction and levels
@@ -42,10 +42,26 @@ thread captures on a stream of its own (:func:`_capture_stream`).  The
 kernels' launches inside a capture are counted at each replay
 (``kernels.counting_capture``).
 
+The runners live for the process, as the reference's ``lru_cache`` keeps
+its compiled programs: a :class:`ProgramSet` (one runner of each kind)
+is checked out of :data:`STORE` by a ``FramePipeline`` on its first device
+run and returned when its stream ends, so a later pipeline on the device
+replays from its first frame of each key.  A pipeline holds its set alone,
+and a set moves on only after its holder's last copy-out: the argument
+above holds across pipelines as it does across frames, once the next holder
+is ordered behind the last one's work.  On a card the set's return records
+an event on each stream its runners last ran on, and its next checkout
+makes the new holder's stream wait on them (:meth:`ProgramStore.acquire`).
+A key's graphs may so be captured in one thread and replayed on another
+thread's stream, which CUDA allows: a graph is launched on whatever stream
+its replay names.  A set whose holder raised inside a run is dropped, not
+returned: a failed capture may leave a key half built.
+
 On the CPU a runner runs the same calls eagerly, into the same static
-buffers, and copies out the same outputs, so a CPU test sees a stale read.
-There is no switch back to the eager calls on a card: a capture or replay
-that fails raises, with a note naming the program and the key.
+buffers, and copies out the same outputs, so a CPU test sees a stale read,
+also across pipelines that share a set.  There is no switch back to the
+eager calls on a card: a capture or replay that fails raises, with a note
+naming the program and the key.
 """
 
 from __future__ import annotations
@@ -133,13 +149,23 @@ class KeyPrograms:
         self.data = data      # the inputs, then every call's outputs by name
         self.graphs = None    # a Graph per call once captured
         self.eager = 0        # runs made eagerly
+        self.captures = 0     # runs that captured the key's graphs
         self.replays = 0      # runs made as replays
+
+
+def new_counts() -> dict:
+    """A holder's counts of one runner's runs: eager, capturing (each also
+    a replay) and replayed."""
+    return {"eager": 0, "captures": 0, "replays": 0}
 
 
 class Programs:
     """Calls run by key: on a card CUDA graphs per key after the key's first
     run, on the CPU the eager calls.  ``program`` names the runner in the
-    note of a failed capture."""
+    note of a failed capture.  ``counts`` are the current holder's
+    (:func:`new_counts`), which a pipeline swaps in when it checks the
+    runner's set out; the keys' own counts are the runner's over every
+    holder."""
 
     program = "device program"
 
@@ -147,6 +173,9 @@ class Programs:
         self.device = torch.device(device)
         self._keys = {}
         self._pool = None
+        self.counts = new_counts()
+        self.stream = None    # the stream of the last run on a card
+        self.failed = False   # a run raised: the runner may be half built
 
     def _run(self, key, inputs: dict, make_calls) -> dict:
         """Load ``inputs`` (name -> numpy array, tensor, or a tuple of them)
@@ -155,6 +184,13 @@ class Programs:
         call reading the buffers by name and returning its outputs in the
         order of its names).  Returns the buffers, the calls' outputs among
         them."""
+        try:
+            return self._run_key(key, inputs, make_calls)
+        except BaseException:
+            self.failed = True
+            raise
+
+    def _run_key(self, key, inputs, make_calls) -> dict:
         k = self._keys.get(key)
         if k is None:
             k = KeyPrograms(make_calls(), {
@@ -162,14 +198,20 @@ class Programs:
                 for name, a in inputs.items()})
             self._keys[key] = k
         d = k.data
+        if self.device.type == "cuda":
+            self.stream = torch.cuda.current_stream(self.device)
         for name, a in inputs.items():
             _load(d[name], a)
         if self.device.type == "cuda" and k.eager:
             if k.graphs is None:
                 self._capture(key, k)
+                k.captures += 1
+                self.counts["captures"] += 1
+            # on this thread's current stream, whichever thread captured
             for g in k.graphs:
                 g.replay()
             k.replays += 1
+            self.counts["replays"] += 1
         else:
             for names, call in k.calls:
                 for name, v in zip(names, call(d)):
@@ -178,6 +220,7 @@ class Programs:
                     else:
                         d[name] = v
             k.eager += 1
+            self.counts["eager"] += 1
         return d
 
     def _capture(self, key, k: KeyPrograms) -> None:
@@ -215,14 +258,15 @@ class Programs:
         return tuple(key)
 
     def stats(self) -> dict:
-        """Keys, keys captured, runs made eagerly and as replays, the
-        pool's bytes on the card, and per key its description with its
-        eager and replayed runs."""
+        """Keys, keys captured, runs made eagerly, capturing and as
+        replays (over every holder), the pool's bytes on the card, and per
+        key its description with its eager and replayed runs."""
         ks = list(self._keys.values())
         return {
             "keys": len(ks),
             "captured": sum(k.graphs is not None for k in ks),
             "eager": sum(k.eager for k in ks),
+            "captures": sum(k.captures for k in ks),
             "replays": sum(k.replays for k in ks),
             "pool_bytes": self.pool_bytes(),
             "by_key": [(*self._describe(key), k.eager, k.replays)
@@ -324,3 +368,129 @@ class CdefPrograms(Programs):
                 planes, grid, damping, bd, d["rec"], d["src"], d["filt"],
                 list(y_str), list(uv_str)))])
         return d["outs"], d["idx"]
+
+
+class ProgramSet:
+    """One runner of each kind, used together by one pipeline at a time:
+    ``chain``, ``analysis`` and ``cdef``."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.chain = ChainPrograms(device)
+        self.analysis = AnalysisPrograms(device)
+        self.cdef = CdefPrograms(device)
+        self.ready = []       # events of the last holder's streams
+
+    def runners(self) -> dict:
+        """The runners by the name ``stats`` gives them."""
+        return {"chain": self.chain, "analysis": self.analysis,
+                "CDEF": self.cdef}
+
+    @property
+    def failed(self) -> bool:
+        return any(r.failed for r in self.runners().values())
+
+    def streams(self) -> set:
+        """The streams the runners last ran on (none on the CPU)."""
+        return {r.stream for r in self.runners().values()
+                if r.stream is not None}
+
+    def stats(self) -> dict:
+        """Each runner's :meth:`Programs.stats`, by name."""
+        return {name: r.stats() for name, r in self.runners().items()}
+
+    def pool_bytes(self) -> int:
+        return sum(r.pool_bytes() for r in self.runners().values())
+
+
+class ProgramStore:
+    """The sets of runners of a process, per device.  :meth:`acquire` hands
+    out the idle set released last, or a new one, so a device never holds
+    more sets than it had pipelines running at once; :meth:`release` takes
+    a set back for the next pipeline.  Sets live for the process.
+
+    Each runner's static buffers, its first run's outputs and its graph
+    pool are allocated by the caching allocator on its first holder's
+    stream and keep that stream's tag, which the allocator reads only when
+    a block is freed.  None is freed while the set lives, except the eager
+    outputs that a capture replaces, which no later holder's stream has
+    touched, since a key runs eagerly once; so no ``record_stream`` is
+    needed.  A dropped set is freed whole once its last holder's work has
+    run (:meth:`_prune`).
+
+    :meth:`release` may run in a garbage collection anywhere, inside
+    another pipeline's capture or this store's own lock (which is
+    reentrant for that), and so makes no call that a capture forbids: it
+    records events, and waits on none."""
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._idle = {}      # device -> idle sets, the last released last
+        self._sets = {}      # device -> every set not dropped
+        self._dropped = []   # dropped sets whose last work may still run
+
+    @staticmethod
+    def _device(device) -> torch.device:
+        d = torch.device(device)
+        if d.type == "cuda" and d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+        return d
+
+    def acquire(self, device) -> ProgramSet:
+        """A set of runners on ``device`` for the calling pipeline.  On a
+        card its last holder's work is ordered before the current stream's,
+        so no copy into its static buffers overtakes a replay or copy-out of
+        the last holder."""
+        device = self._device(device)
+        self._prune()
+        with self._lock:
+            idle = self._idle.setdefault(device, [])
+            pset = idle.pop() if idle else None
+        if pset is None:
+            pset = ProgramSet(device)
+            with self._lock:
+                self._sets.setdefault(device, []).append(pset)
+        if pset.ready:
+            stream = torch.cuda.current_stream(device)
+            for event in pset.ready:
+                stream.wait_event(event)
+            pset.ready = []
+        return pset
+
+    def release(self, pset: ProgramSet) -> None:
+        """Take ``pset`` back at its holder's end of stream, or drop it for
+        good when a run of its holder raised."""
+        events = []
+        for stream in pset.streams():
+            event = torch.cuda.Event()
+            event.record(stream)
+            events.append(event)
+        pset.ready = events
+        with self._lock:
+            if pset.failed:
+                self._sets[pset.device].remove(pset)
+                self._dropped.append(pset)
+            else:
+                self._idle[pset.device].append(pset)
+
+    def _prune(self) -> None:
+        """Let go of the dropped sets whose last holder's work has run."""
+        with self._lock:
+            for pset in list(self._dropped):
+                if all(e.query() for e in pset.ready):
+                    self._dropped.remove(pset)
+
+    def stats(self, device) -> dict:
+        """Of ``device``: the sets, those in use, and each set's runner
+        stats (:meth:`ProgramSet.stats`), and their pools' bytes in all."""
+        device = self._device(device)
+        with self._lock:
+            sets = list(self._sets.get(device, []))
+            idle = len(self._idle.get(device, []))
+        return {"sets": len(sets), "in_use": len(sets) - idle,
+                "by_set": [s.stats() for s in sets],
+                "pool_bytes": sum(s.pool_bytes() for s in sets)}
+
+
+# the process's store, which every FramePipeline checks its set out of
+STORE = ProgramStore()

@@ -23,6 +23,7 @@ host body are the reference's own and are counted by the trace spans
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -46,6 +47,7 @@ from rav1e_tpu_torch.device import (
     upload_source_luma,
 )
 from rav1e_tpu_torch.device import analysis as _analysis
+from rav1e_tpu_torch.device import graphs as _graphs
 from rav1e_tpu_torch.ec import WriterEncoder
 from rav1e_tpu_torch.encoder.obu import (
     FrameHeaderInfo,
@@ -2283,21 +2285,16 @@ class FramePipeline:
         self._chain_slots: list = [None] * 8
         self._chain_pending_refs = None
         self._chain_dummy_rec = None
-        # the chain's stages as CUDA graphs per (geometry, CDEF lists) on a
-        # card, eager into the same static buffers on the CPU; this
-        # pipeline's own, as are its buffers and graph pool
-        from rav1e_tpu_torch.device.graphs import (
-            AnalysisPrograms,
-            CdefPrograms,
-            ChainPrograms,
-        )
-
-        self._chain_programs = ChainPrograms(self.device)
-        # likewise the frame analysis (one graph per padded shape, bit depth
-        # and references) and the standalone CDEF stage (one per geometry,
-        # damping and strength lists)
-        self._analysis_programs = AnalysisPrograms(self.device)
-        self._cdef_programs = CdefPrograms(self.device)
+        # the runners of the chain's stages, the frame analysis and the
+        # standalone CDEF stage (CUDA graphs per key on a card, eager into
+        # the same static buffers on the CPU): a set checked out of
+        # device/graphs.py's STORE on the first device run
+        # (_program_set), returned at the end of the stream
+        # (release_programs) or, for a pipeline dropped before it, when the
+        # pipeline is collected; kept after the return for its stats
+        self._programs = None
+        self._programs_return = None
+        self._program_counts = None
         # chain dispatched one frame early (validated at consumption):
         self._pending_chain = None
         self.rc = RCState(
@@ -2309,6 +2306,55 @@ class FramePipeline:
             min_quantizer=enc.min_quantizer,
             max_key_frame_interval=enc.max_key_frame_interval,
         )
+
+    def _program_set(self):
+        """The set of runners this pipeline holds, checked out of the
+        store on the first call; the pipeline's own counts of each runner's
+        runs are swapped into the set's runners."""
+        if self._programs is None:
+            store = _graphs.STORE
+            pset = store.acquire(self.device)
+            self._program_counts = {}
+            for name, runner in pset.runners().items():
+                runner.counts = self._program_counts[name] = (
+                    _graphs.new_counts())
+            self._programs = pset
+            self._programs_return = weakref.finalize(self, store.release,
+                                                     pset)
+            self._programs_return.atexit = False
+        return self._programs
+
+    @property
+    def _chain_programs(self):
+        return self._program_set().chain
+
+    @property
+    def _analysis_programs(self):
+        return self._program_set().analysis
+
+    @property
+    def _cdef_programs(self):
+        return self._program_set().cdef
+
+    def release_programs(self) -> None:
+        """Return the set of runners to the store at the end of the stream
+        (once; a set whose run raised is dropped instead).  Every result
+        read from a runner has been copied out by then: the chain's
+        reconstruction, header and levels (``chain.dispatch_chain``), the
+        analysis's outputs (``AnalysisPrograms.run``) and the CDEF stage's
+        planes and index map (``filters.cdef_device_frame``)."""
+        if self._programs_return is not None:
+            self._programs_return()
+
+    def program_stats(self) -> dict:
+        """Per runner ("chain", "analysis", "CDEF"): this pipeline's own
+        eager, capturing and replayed runs, and under "set" the stats of
+        the runner it holds or held (``Programs.stats``: over every
+        pipeline that held it); empty before the first device run."""
+        if self._programs is None:
+            return {}
+        return {name: dict(self._program_counts[name], set=runner.stats())
+                for name, runner in self._programs.runners().items()}
 
     def _ref_src_luma(self, slot):
         """Source luma of the frame occupying a reference slot (falls back to

@@ -81,7 +81,8 @@ def test_analysis_runner_equals_frame_analysis(key):
         assert handle[1:] == flags
         _assert_equal(handle[0], _eager(planes, flags, qi))
     assert programs.stats() == {
-        "keys": 1, "captured": 0, "eager": 2, "replays": 0, "pool_bytes": 0,
+        "keys": 1, "captured": 0, "eager": 2, "captures": 0, "replays": 0,
+        "pool_bytes": 0,
         "by_key": [((H, W), 8, *flags, 2, 0)]}
 
 

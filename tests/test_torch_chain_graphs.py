@@ -128,7 +128,8 @@ def test_runner_equals_eager_stages(w, h):
         assert torch.equal(got[2], want[2])
     f = _frame(w, h, 1, Q_OTHER)
     assert programs.stats() == {
-        "keys": 1, "captured": 0, "eager": 2, "replays": 0, "pool_bytes": 0,
+        "keys": 1, "captured": 0, "eager": 2, "captures": 0, "replays": 0,
+        "pool_bytes": 0,
         "by_key": [(True, True, tuple(f["y_list"]), tuple(f["uv_list"]), 2,
                     0)]}
 
