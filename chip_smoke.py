@@ -107,10 +107,19 @@ Phases, each printing one line with its time:
    each band on a stream of its own: sharded_frame_analysis and
    sharded_inter_analysis on a 1024x1920 frame pair equal the same calls
    on 4 CPU slots (maps and MVs exactly, bits within 1e-5 relative); the
-   port's dryrun_multichip on the card's slots; a 4-frame 1080p chain-on
-   encode with the pipeline's analysis mesh set to the card's slots gives
-   the unsharded encode's packets, which decode; prints both encodes'
-   frames/s and kernel launches beside the card's name and power limit;
+   port's dryrun_multichip on the card's slots; the band runners (a CUDA
+   graph per slot and key, device/graphs.py ``BandPrograms``) at the four
+   1080p analysis keys through a set of the store, eager, capturing and
+   replayed, each exactly equal to the eager mesh analysis in all seven
+   outputs and in launch counts, two dispatches kept apart, with host ms
+   and host launches per analysis and per band replay (at most 10); a
+   4-frame 1080p chain-on encode in turns unsharded, mesh, mesh,
+   unsharded (the mesh the card's slots): both mesh contexts give the
+   unsharded packets, which decode, at 4x its kernel launches, and the
+   second runs no band key eagerly and captures none; a 2-slot GOP
+   channel under the mesh equals its chunks encoded alone; prints each
+   context's frames/s, kernel launches and band runs beside the card's
+   name and power limit;
 15. bench: ``python3 bench_torch.py`` (bench.py's workload through the
    port on the card) in a subprocess; prints each timed repetition's
    seconds and runs of the replayed programs, of which the second and
@@ -124,12 +133,14 @@ nvidia-smi's name and power limit; the last line is
 {"ok": true, "device": {...}}.  Any failure exits non-zero without it.
 Each kernel's bound is the larger of its bytes (each input read once, each
 output written once) over the H100's 3.35 TB/s and its integer operations
-over 67 Tops (the card's non-tensor float32 rate, the nearest published
-peak), computed from this run's inputs.
+over the card's 32-bit integer rate, its SMs x 64 INT32 lanes x its maximum
+SM clock (``nvidia-smi --query-gpu=clocks.max.sm``, printed in the env
+phase), computed from this run's inputs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -148,7 +159,10 @@ GOP_FRAMES, GOP_LEN, GOP_SLOTS = 48, 16, 3
 NEAR_TIE = 1e-5
 SEED = 42
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-PEAK_OPS_PER_S = 67e12  # H100 SXM non-tensor float32 rate
+# Hopper issues 32-bit integer operations on 64 INT32 lanes per SM; the
+# kernels' SAD and Hadamard arithmetic is integer, so their operations
+# bound is SMs x 64 x the SM clock (int32_ops_per_s)
+INT32_LANES_PER_SM = 64
 # satd8, per 8x8 cell: 16 eight-point butterflies of 24 add/sub, 64 |.|,
 # 64 adds
 SATD_OPS_PER_CELL = 16 * 24 + 64 + 64
@@ -156,10 +170,13 @@ SATD_OPS_PER_CELL = 16 * 24 + 64 + 64
 KERNEL_RUNS = 5
 # (satd8, grid_search) launches of each phase's encode on the card, which
 # every card run has given (PERF.md, section 6): a replay counts the
-# launches its graph holds, so neither graphs nor their store moves them
+# launches its graph holds, so neither graphs nor their store moves them.
+# The mesh phase encodes its 4 frames in two mesh contexts, each 76 and
+# 48 (4 slots x the unsharded 19 and 12), the second through band replays
+# only: the entry is their sum
 LAUNCHES_BY_PHASE = {"slice": (94, 120), "cli": (94, 120),
                      "chain-off": (19, 12), "gop": (282, 360),
-                     "mesh": (76, 48), "reference": (433, 340)}
+                     "mesh": (152, 96), "reference": (433, 340)}
 
 
 def fail(msg: str) -> None:
@@ -202,9 +219,26 @@ def cuda_ms(fn, reps: int) -> float:
 # ---------------------------------------------------------------------------
 
 
-def bound(nbytes: float, ops: float):
-    """(least ms the card could take, what bounds it)."""
-    tb, to = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S
+def int32_ops_per_s():
+    """(32-bit integer operations per second of card 0, its SM count, its
+    maximum SM clock in MHz): the SMs x INT32_LANES_PER_SM x the clock that
+    ``nvidia-smi --query-gpu=clocks.max.sm`` reports."""
+    import torch
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    mhz = float(out.stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_LANES_PER_SM * mhz * 1e6, sms, mhz
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float):
+    """(least ms the card could take, what bounds it), at ``ops_per_s``
+    integer operations per second."""
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations")
 
 
@@ -270,7 +304,7 @@ def satd_bound_diffs(n, m, g):
     return d.reshape(n, 13, 64, 64).contiguous()
 
 
-def kernel_phase(dev, luma0, luma1):
+def kernel_phase(dev, luma0, luma1, ops_per_s):
     import torch
 
     from rav1e_tpu_torch.device import kernels
@@ -338,7 +372,8 @@ def kernel_phase(dev, luma0, luma1):
                 for _ in range(KERNEL_RUNS)]
         pms = cuda_ms(lambda: kernels.satd8_plain(d), 5)
         cells = d.numel() // 64
-        b = bound(4 * (d.numel() + got.numel()), SATD_OPS_PER_CELL * cells)
+        b = bound(4 * (d.numel() + got.numel()), SATD_OPS_PER_CELL * cells,
+                  ops_per_s)
         rows.append(("satd8", label, err, runs, pms, *b))
     for label, a in grid_cases:
         got = kernels.grid_search(*a)
@@ -352,7 +387,7 @@ def kernel_phase(dev, luma0, luma1):
                 for _ in range(KERNEL_RUNS)]
         pms = cuda_ms(lambda: kernels.grid_search_plain(*a), 5)
         rows.append(("grid_search", label, err, runs, pms,
-                     *bound(*grid_search_bound(a))))
+                     *bound(*grid_search_bound(a), ops_per_s)))
     summary = {}
     for i, (name, label, err, runs, pms, bms, by) in enumerate(rows):
         ms = float(np.median(runs))
@@ -962,103 +997,139 @@ QUANTIZER_B = QUANTIZER + 20  # frame B's, so q and lambda change in a key
 ANALYSIS_REPLAY_LAUNCHES = 10
 
 
+def analysis_lam(qi):
+    """The pipeline's lambda at quantizer ``qi`` (8 bits)."""
+    from rav1e_tpu_torch import tables
+
+    return 0.12 * (tables.ac_q(qi, 0, 8) / 8.0) ** 2
+
+
+def key_flags(idx):
+    """(has_inter, has_bwd, has_bwd2) of a frame given as its clip indices."""
+    return (len(idx) > 1, len(idx) > 2, len(idx) > 3)
+
+
+def key_planes(luma, idx):
+    """(luma, ref0, ref1, ref2) of a frame as the eager analysis takes
+    them: the references its key does not read stand in as the whole-frame
+    run has them."""
+    p = [luma[i] for i in idx] + [None] * (4 - len(idx))
+    f = key_flags(idx)
+    ref0 = p[1] if f[0] else p[0]
+    ref1 = p[2] if f[1] else ref0
+    return p[0], ref0, ref1, p[3] if f[2] else ref0
+
+
+def key_dispatch(luma, dev, runner, idx, qi):
+    """``analyze_frame_async`` of frame ``idx`` through ``runner``, as the
+    pipeline calls it."""
+    from rav1e_tpu_torch.device import analysis
+
+    refs = [luma[i] for i in idx[1:]] + [None] * (4 - len(idx))
+    return analysis.analyze_frame_async(
+        luma[idx[0]], refs[0], refs[1], qi, analysis_lam(qi), 8,
+        ref2_np=refs[2], device=dev, programs=runner)
+
+
+def key_graph_rows(what, dispatch, runner, profiled, name, a, b, want,
+                   limit):
+    """One analysis key through ``runner`` (``dispatch(runner, idx, qi)``):
+    frame A eager, frame B (QUANTIZER_B) capturing, A replayed, each equal
+    to ``want[idx]`` (the eager outputs and kernel launches) in all seven
+    outputs and in launch counts, then B and A dispatched before either is
+    read, each equal to its own.  Per run: host ms to enqueue, CUDA-event
+    ms, and from torch.profiler (the same run through ``profiled``) host
+    launches, kernels, copies and device-busy ms; a whole replay must make
+    at most ``limit`` host launches (None: no limit).  Returns the report
+    row and the replay's CUDA-event ms over 5."""
+    import torch
+
+    from rav1e_tpu_torch.device import kernels
+
+    row = []
+    for how, idx, qi in (("eager", a, QUANTIZER), ("capture", b, QUANTIZER_B),
+                         ("replay", a, QUANTIZER)):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        ev[0].record()
+        t0 = time.perf_counter()
+        h = dispatch(runner, idx, qi)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[1].record()
+        torch.cuda.synchronize()
+        same_outputs(h, want[idx][0], what, f"{name} {how} frame {idx}")
+        if dict(kernels.LAUNCHES) != want[idx][1]:
+            fail(f"{what}: {name} {how} counted launches {kernels.LAUNCHES}"
+                 f", the eager run {want[idx][1]}")
+        kern, copies, host, busy = profile_call(
+            lambda: dispatch(profiled, idx, qi))
+        row.append(f"{how} host_ms={host_ms:.3f} "
+                   f"ms={ev[0].elapsed_time(ev[1]):.3f} "
+                   f"host_launches={host} kernels={kern} copies={copies} "
+                   f"device_busy_ms={busy:.3f}")
+        if how == "replay" and limit is not None and host > limit:
+            fail(f"{what}: a {name} replay made {host} host launches, more "
+                 f"than {limit}")
+    hb = dispatch(runner, b, QUANTIZER_B)
+    ha = dispatch(runner, a, QUANTIZER)
+    same_outputs(hb, want[b][0], what, f"{name}: of two dispatches, the first")
+    same_outputs(ha, want[a][0], what,
+                 f"{name}: of two dispatches, the second")
+    return " | ".join(row), cuda_ms(lambda: dispatch(runner, a, QUANTIZER), 5)
+
+
+def same_outputs(handle, want, what, which):
+    import torch
+
+    if not all(x.dtype == y.dtype and torch.equal(x, y)
+               for x, y in zip(handle[0], want)):
+        fail(f"{what}: {which} differs from the eager run")
+
+
 def analysis_graph_check(clip, dev):
     """The analysis as CUDA graphs (``AnalysisPrograms``) at 1080p, for each
     of the four keys, through ``analyze_frame_async`` as the pipeline calls
-    it: frame A runs eagerly, frame B (another quantizer) captures and
-    replays, A replays; each equals ``_frame_analysis`` run eagerly on the
-    card exactly in all seven outputs, and counts the same kernel launches.
-    Two dispatches of the key (B then A) before either is read keep their
-    own results.  One runner holds all four keys, as a pipeline's does;
-    after the last key each key's frame B replays to its eager result
-    again.  Per key: host ms to enqueue and CUDA-event ms of the eager,
-    capturing and replayed analysis, and from torch.profiler (a second
-    runner) their host launches, kernels and device-busy ms; a replay must
-    make at most ANALYSIS_REPLAY_LAUNCHES host launches.  Returns the report
-    lines."""
+    it (:func:`key_graph_rows`: eager, capturing, replayed, two dispatches
+    kept apart), each held to ``_frame_analysis`` run eagerly on the card;
+    a replay must make at most ANALYSIS_REPLAY_LAUNCHES host launches.  One
+    runner holds all four keys, as a pipeline's does; after the last key
+    each key's frame B replays to its eager result again.  Returns the
+    report lines."""
     import torch
 
-    from rav1e_tpu_torch import tables
     from rav1e_tpu_torch.device import analysis, kernels
     from rav1e_tpu_torch.device.graphs import AnalysisPrograms
 
     luma = [analysis.upload_source_luma(clip[i][0], dev) for i in range(10)]
-
-    def lam(qi):
-        return 0.12 * (tables.ac_q(qi, 0, 8) / 8.0) ** 2
-
-    def flags(idx):
-        return (len(idx) > 1, len(idx) > 2, len(idx) > 3)
+    what = "analysis graphs"
 
     def dispatch(runner, idx, qi):
-        refs = [luma[i] for i in idx[1:]] + [None] * (4 - len(idx))
-        return analysis.analyze_frame_async(
-            luma[idx[0]], refs[0], refs[1], qi, lam(qi), 8, ref2_np=refs[2],
-            device=dev, programs=runner)
+        return key_dispatch(luma, dev, runner, idx, qi)
 
     def eager(idx, qi):
-        planes = [luma[i].to(torch.int32) for i in idx]
-        f = flags(idx)
-        ref0 = planes[1] if f[0] else planes[0]
-        ref1 = planes[2] if f[1] else ref0
-        ref2 = planes[3] if f[2] else ref0
-        q, lt = analysis._scalars(qi, lam(qi), 8, dev)
+        planes = [p.to(torch.int32) for p in key_planes(luma, idx)]
+        q, lt = analysis._scalars(qi, analysis_lam(qi), 8, dev)
         kernels.reset_launches()
-        out = analysis._frame_analysis(planes[0], ref0, ref1, ref2, q, lt,
-                                       8, *f)[:7]
-        return out, dict(kernels.LAUNCHES)
-
-    def same(handle, want, what):
-        if not all(a.dtype == b.dtype and torch.equal(a, b)
-                   for a, b in zip(handle[0], want)):
-            fail(f"analysis graphs: {what} differs from the eager analysis")
+        out = analysis._frame_analysis(*planes, q, lt, 8, *key_flags(idx))
+        return out[:7], dict(kernels.LAUNCHES)
 
     runner, profiled = AnalysisPrograms(dev), AnalysisPrograms(dev)
     lines, wants = [], {}
     for name, a, b in ANALYSIS_KEYS:
         want = {a: eager(a, QUANTIZER), b: eager(b, QUANTIZER_B)}
         wants[name] = (b, want[b][0])
-        row = []
-        for how, idx, qi in (("eager", a, QUANTIZER),
-                             ("capture", b, QUANTIZER_B),
-                             ("replay", a, QUANTIZER)):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            torch.cuda.synchronize()
-            kernels.reset_launches()
-            ev[0].record()
-            t0 = time.perf_counter()
-            h = dispatch(runner, idx, qi)
-            host_ms = (time.perf_counter() - t0) * 1e3
-            ev[1].record()
-            torch.cuda.synchronize()
-            same(h, want[idx][0], f"{name} {how} frame {idx}")
-            if dict(kernels.LAUNCHES) != want[idx][1]:
-                fail(f"analysis graphs: {name} {how} counted launches "
-                     f"{kernels.LAUNCHES}, the eager analysis "
-                     f"{want[idx][1]}")
-            kern, copies, host, busy = profile_call(
-                lambda: dispatch(profiled, idx, qi))
-            row.append(f"{how} host_ms={host_ms:.3f} "
-                       f"ms={ev[0].elapsed_time(ev[1]):.3f} "
-                       f"host_launches={host} kernels={kern} copies={copies} "
-                       f"device_busy_ms={busy:.3f}")
-            if how == "replay" and host > ANALYSIS_REPLAY_LAUNCHES:
-                fail(f"analysis graphs: a {name} replay made {host} host "
-                     f"launches, more than {ANALYSIS_REPLAY_LAUNCHES}")
-        hb = dispatch(runner, b, QUANTIZER_B)
-        ha = dispatch(runner, a, QUANTIZER)
-        same(hb, want[b][0], f"{name}: of two dispatches, the first")
-        same(ha, want[a][0], f"{name}: of two dispatches, the second")
-        ms = cuda_ms(lambda: dispatch(runner, a, QUANTIZER), 5)
-        lines.append(f"analysis graphs {name:12s} " + " | ".join(row)
-                     + f" | replay ms over 5={ms:.3f}; launches "
-                     f"{want[a][1]}; == eager, two dispatches kept")
+        row, ms = key_graph_rows(what, dispatch, runner, profiled, name, a,
+                                 b, want, ANALYSIS_REPLAY_LAUNCHES)
+        lines.append(f"{what} {name:12s} {row} | replay ms over 5={ms:.3f}; "
+                     f"launches {want[a][1]}; == eager, two dispatches kept")
     for name, (b, want) in wants.items():
-        same(dispatch(runner, b, QUANTIZER_B), want, f"{name} after all keys")
+        same_outputs(dispatch(runner, b, QUANTIZER_B), want, what,
+                     f"{name} after all keys")
     st = runner.stats()
     if (st["keys"], st["captured"], st["eager"]) != (4, 4, 4):
-        fail(f"analysis graphs: runner stats {st}")
-    lines.append(f"analysis graphs: 4 keys in one runner, {st['replays']} "
+        fail(f"{what}: runner stats {st}")
+    lines.append(f"{what}: 4 keys in one runner, {st['replays']} "
                  f"replays, each key's frame B == eager again after all "
                  f"keys; pool {st['pool_bytes']} bytes")
     return lines
@@ -1721,6 +1792,27 @@ def reference_phase(r, dev):
 MESH_SLOTS = 4
 MESH_FRAMES = 4
 MESH_BITS_RTOL = 1e-5  # card vs CPU: float32 sums in other orders
+# host launches of one band's replay (``BandPrograms.run``): the copies of
+# its windows and of q/lambda into the key's buffers, one graph launch, one
+# clone of the packed outputs; the window's halo copies and the gather are
+# not counted
+BAND_REPLAY_LAUNCHES = 10
+# the GOP channel under the mesh: 2 slots, 2 chunks of 4 frames
+MESH_GOP_SLOTS, MESH_GOP_LEN = 2, 4
+
+
+@contextlib.contextmanager
+def using_mesh(mesh):
+    """The pipeline's analysis mesh swapped for ``mesh`` (None: unsharded)
+    in the body."""
+    from rav1e_tpu_torch.device import analysis
+
+    orig = analysis._analysis_mesh
+    analysis._analysis_mesh = lambda device: mesh
+    try:
+        yield
+    finally:
+        analysis._analysis_mesh = orig
 
 
 def mesh_encode(r, clip, mesh):
@@ -1729,11 +1821,9 @@ def mesh_encode(r, clip, mesh):
     packets, the kernels' launches, the seconds and the context."""
     import torch
 
-    from rav1e_tpu_torch.device import analysis, kernels
+    from rav1e_tpu_torch.device import kernels
 
-    orig = analysis._analysis_mesh
-    analysis._analysis_mesh = lambda device: mesh
-    try:
+    with using_mesh(mesh):
         ctx = slice_config(r).new_context()
         torch.cuda.synchronize()
         kernels.reset_launches()
@@ -1741,15 +1831,131 @@ def mesh_encode(r, clip, mesh):
         pkts = encode(ctx, clip, r)
         torch.cuda.synchronize()
         return pkts, dict(kernels.LAUNCHES), time.monotonic() - t, ctx
-    finally:
-        analysis._analysis_mesh = orig
+
+
+def band_graph_check(clip, mesh, dev):
+    """The mesh analysis through band runners (``graphs.BandPrograms``, one
+    CUDA graph per slot and key) at 1080p on ``mesh``, for each of the four
+    analysis keys, through a set checked out of the store as a pipeline
+    checks it out (:func:`key_graph_rows`: eager, capturing, replayed, two
+    dispatches kept apart), each held to ``_mesh_frame_analysis`` run
+    eagerly on the card; each slot's band replay must make at most
+    BAND_REPLAY_LAUNCHES host launches.  After the last key each key's
+    frame B replays to its eager result again.  The set goes back to the
+    store, so the mesh encodes that follow replay from their first frame.
+    Returns the report lines."""
+    from rav1e_tpu_torch import tables
+    from rav1e_tpu_torch.device import analysis, graphs, kernels
+    from rav1e_tpu_torch.parallel.mesh import ANALYSIS_HALO, on_slot
+
+    what = "mesh graphs"
+
+    def dispatch(runner, idx, qi):
+        return key_dispatch(luma, dev, runner, idx, qi)
+
+    def eager(idx, qi):
+        kernels.reset_launches()
+        out = analysis._mesh_frame_analysis(mesh, rows, key_planes(luma, idx),
+                                            qi, analysis_lam(qi), 8,
+                                            key_flags(idx))
+        return out, dict(kernels.LAUNCHES)
+
+    def band_launches(runner, idx, qi):
+        """Host launches of each slot's band replay of frame ``idx``."""
+        h, out = rows[-1][1], []
+        q, f = float(tables.ac_q(qi, 0, 8)), key_flags(idx)
+        for i, (lo, hi) in enumerate(rows):
+            top, bot = min(ANALYSIS_HALO, lo), min(ANALYSIS_HALO, h - hi)
+            windows = [p.window(i, lo - top, hi + bot) if used else None
+                       for p, used in zip(key_planes(luma, idx), (True, *f))]
+
+            def run():
+                with on_slot(mesh, i):
+                    runner.band(mesh, i).run(*windows, top, hi - lo, q,
+                                             analysis_lam(qi), 8, f)
+
+            out.append(profile_call(run)[2])
+        return out
+
+    with using_mesh(mesh):
+        luma = [analysis.upload_source_luma(clip[i][0], dev)
+                for i in range(10)]
+        rows = luma[0].rows
+        pset = graphs.STORE.acquire(dev)
+        pset.hold()
+        runner, profiled = pset.analysis, graphs.AnalysisPrograms(dev)
+        lines, wants = [], {}
+        try:
+            for name, a, b in ANALYSIS_KEYS:
+                want = {a: eager(a, QUANTIZER), b: eager(b, QUANTIZER_B)}
+                wants[name] = (b, want[b][0])
+                row, ms = key_graph_rows(what, dispatch, runner, profiled,
+                                         name, a, b, want, None)
+                bands = band_launches(runner, a, QUANTIZER)
+                if max(bands) > BAND_REPLAY_LAUNCHES:
+                    fail(f"{what}: a {name} band replay made {bands} host "
+                         f"launches, more than {BAND_REPLAY_LAUNCHES}")
+                lines.append(
+                    f"{what} {name:12s} {row} | band replays' host launches "
+                    f"by slot {bands} | replay ms over 5={ms:.3f}; launches "
+                    f"{want[a][1]}; == eager mesh, two dispatches kept")
+            for name, (b, want) in wants.items():
+                same_outputs(dispatch(runner, b, QUANTIZER_B), want, what,
+                             f"{name} after all keys")
+        finally:
+            graphs.STORE.release(pset)
+    for i in range(len(rows)):
+        st = runner.band(mesh, i).stats()
+        if (st["keys"], st["captured"], st["eager"]) != (4, 4, 4):
+            fail(f"{what}: band {i} runner stats {st}")
+        lines.append(f"{what}: band {i} rows {rows[i]}: 4 keys, "
+                     f"{st['replays']} replays; pool {st['pool_bytes']} "
+                     "bytes")
+    return lines
+
+
+def mesh_gop_case(r, clip, mesh):
+    """A 2-slot GOP channel under the mesh (each worker's pipeline with a
+    set of its own, their bands on the mesh's shared slot streams): the
+    packets equal each chunk encoded alone under the same mesh."""
+    cfg = slice_config(r)
+    cfg.enc.min_key_frame_interval = MESH_GOP_LEN
+    cfg.enc.max_key_frame_interval = MESH_GOP_LEN
+    n = MESH_GOP_SLOTS * MESH_GOP_LEN
+    with using_mesh(mesh):
+        cfg.parallel_gops = MESH_GOP_SLOTS
+        t = time.monotonic()
+        par = channel_encode(cfg, clip[:n])
+        par_s = time.monotonic() - t
+        cfg.parallel_gops = 0
+        alone = []
+        for c in range(MESH_GOP_SLOTS):
+            chunk = encode(cfg.new_context(),
+                           clip[c * MESH_GOP_LEN : (c + 1) * MESH_GOP_LEN], r)
+            for p in chunk:
+                p.input_frameno += c * MESH_GOP_LEN
+            alone += chunk
+    if len(par) != len(alone) or any(
+            (a.data, a.input_frameno) != (b.data, b.input_frameno)
+            for a, b in zip(par, alone)):
+        fail(f"mesh: the {MESH_GOP_SLOTS}-slot GOP channel under the mesh "
+             "differs from its chunks encoded alone")
+    return (f"{MESH_GOP_SLOTS}-slot GOP channel under the mesh, {n} frames "
+            f"in chunks of {MESH_GOP_LEN}: {n / par_s:.4f} frames/s, "
+            f"{len(par)} packets equal the chunks encoded alone")
 
 
 def mesh_phase(r, clip, info):
     """The sharded analysis functions on MESH_SLOTS slots of cuda:0 against
     the same calls on as many CPU slots, the port's dryrun_multichip on the
-    card's slots, and a chain-on 1080p encode with the pipeline's mesh set
-    to the card's slots against the same encode unsharded."""
+    card's slots, the band runners against the eager mesh analysis
+    (:func:`band_graph_check`), and chain-on 1080p encodes in turns
+    (unsharded, mesh, mesh, unsharded): each mesh context gives the
+    unsharded packets, which decode, and launches each kernel MESH_SLOTS
+    times as often as the unsharded encode; the second mesh context runs
+    no band key eagerly and captures none.  Then a GOP channel under the
+    mesh (:func:`mesh_gop_case`).  Returns the report lines and the two
+    mesh contexts' launches, summed."""
     from rav1e_tpu_torch import tables
     from rav1e_tpu_torch.parallel import (
         make_mesh,
@@ -1791,24 +1997,65 @@ def mesh_phase(r, clip, info):
                  f"{len(dry['packets'])} packets equal unsharded; bits "
                  f"{dry['bits']}; {time.monotonic() - t:.3f} s")
 
+    t = time.monotonic()
+    lines += band_graph_check(clip, card, "cuda")
+    lines.append(f"band graph check {time.monotonic() - t:.3f} s")
+
     sub = clip[:MESH_FRAMES]
-    single, l1, s1, _ = mesh_encode(r, sub, None)
-    sharded, l4, s4, ctx = mesh_encode(r, sub, card)
-    if not any(isinstance(p, ShardedPlane)
-               for p in ctx.pipeline._dev_luma_cache.values()):
-        fail("mesh: the encode did not shard its analysis")
-    for name, k in l4.items():
-        if k <= 0:
-            fail(f"mesh: kernel {name} was not launched under the mesh")
-    if [p.data for p in sharded] != [p.data for p in single]:
-        fail("mesh: the sharded encode's packets differ from the unsharded")
-    verify_decode(sharded)
     n = len(sub)
-    lines.append(f"{n}-frame {WIDTH}x{HEIGHT} chain-on encode, mesh of "
-                 f"{MESH_SLOTS} card slots: {n / s4:.4f} frames/s, launches "
-                 f"{l4}; unsharded: {n / s1:.4f} frames/s, launches {l1}; "
-                 f"{len(sharded)} packets equal and decode ({info})")
-    return lines, l4
+    runs = []
+    for label, m in (("unsharded", None), ("mesh", card), ("mesh", card),
+                     ("unsharded", None)):
+        pkts, launches, s, ctx = mesh_encode(r, sub, m)
+        # the band runners this context ran (a set may hold others, of the
+        # meshes its earlier holders met)
+        bands = {k: {c: v for c, v in st.items() if c != "set"}
+                 for k, st in ctx.pipeline.program_stats().items()
+                 if k.startswith("band") and st["eager"] + st["replays"]}
+        sharded = any(isinstance(p, ShardedPlane)
+                      for p in ctx.pipeline._dev_luma_cache.values())
+        runs.append((label, pkts, launches, s, bands))
+        lines.append(f"{n}-frame {WIDTH}x{HEIGHT} chain-on encode, {label}"
+                     f" context {sum(r_[0] == label for r_ in runs)}: "
+                     f"{n / s:.4f} frames/s, launches {launches}, band "
+                     f"runners {bands} ({info})")
+        if sharded != (m is not None):
+            fail(f"mesh: the {label} encode sharded: {sharded}")
+    want = runs[0][1]
+    for i, (label, pkts, launches, s, bands) in enumerate(runs):
+        if [p.data for p in pkts] != [p.data for p in want]:
+            fail(f"mesh: the {label} encode's packets (run {i + 1}) differ "
+                 "from the unsharded")
+        if label != "mesh":
+            continue
+        if launches != {k: MESH_SLOTS * v for k, v in runs[0][2].items()}:
+            fail(f"mesh: launches {launches}, not {MESH_SLOTS} x the "
+                 f"unsharded {runs[0][2]}")
+        if len(bands) != MESH_SLOTS:
+            fail(f"mesh: not every slot's bands ran through its runner: "
+                 f"{bands}")
+    second = runs[2][4]
+    if any(b["eager"] or b["captures"] for b in second.values()):
+        fail(f"mesh: the second mesh context ran a band key eagerly or "
+             f"captured one: {second}")
+    import multiprocessing
+
+    # both mesh contexts' packets decode, each in a process of its own,
+    # while the GOP channel runs
+    with multiprocessing.get_context("spawn").Pool(2) as decoders:
+        decoded = decoders.map_async(
+            _decode_chunk, [decode_triples(runs[i][1]) for i in (1, 2)])
+        t = time.monotonic()
+        lines.append(mesh_gop_case(r, clip, card)
+                     + f"; {time.monotonic() - t:.3f} s")
+        errs = decoded.get(timeout=600)
+    if any(errs):
+        fail(f"mesh: {[e for e in errs if e]}")
+    lines.append(f"{len(want)} packets of each mesh context equal the "
+                 "unsharded and decode to their rec; the second mesh "
+                 "context only replayed")
+    summed = {k: runs[1][2][k] + runs[2][2][k] for k in runs[1][2]}
+    return lines, summed
 
 
 def bench_phase():
@@ -1871,8 +2118,11 @@ def main() -> int:
     dev = "cuda"
     info = gpu_info()
     kind = torch.cuda.get_device_name(0)
+    int_ops, sms, mhz = int32_ops_per_s()
     phase("env", t0, f"{info} | torch {torch.__version__} cuda "
-          f"{torch.version.cuda} | devices {torch.cuda.device_count()}")
+          f"{torch.version.cuda} | devices {torch.cuda.device_count()} | "
+          f"{sms} SMs, max SM clock {mhz:.0f} MHz: {int_ops:.6g} int32 "
+          "ops/s")
 
     t = time.monotonic()
     _build.lib()
@@ -1892,7 +2142,7 @@ def main() -> int:
     phase("clip", t, f"{NFRAMES} frames {WIDTH}x{HEIGHT}")
 
     t = time.monotonic()
-    ksum = kernel_phase(dev, clip[0][0], clip[1][0])
+    ksum = kernel_phase(dev, clip[0][0], clip[1][0], int_ops)
     phase("kernels", t, "kernel == plain at every shape")
 
     pkts, launches, spans, _ = encode_phase(rav1e_tpu_torch, clip, True,

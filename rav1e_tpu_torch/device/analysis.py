@@ -22,6 +22,10 @@ When more than one card is visible, the frame's rows shard over all of them
 (:func:`_analysis_mesh`): each band of whole superblock rows is analysed on
 its card with a halo of the real rows around it, wide enough that its
 interior decisions are the whole-frame run's, so the packets do not change.
+Each band runs through the pipeline's runner for its slot
+(``device/graphs.BandPrograms``, one CUDA graph per key on its card), the
+counterpart of the reference's GSPMD-partitioned ``frame_analysis_jit``;
+:func:`_mesh_frame_analysis` is the same banding run eagerly.
 """
 
 from __future__ import annotations
@@ -560,12 +564,12 @@ def analyze_frame_async(luma_np, ref0_np, ref1_np, qindex: int, lam: float,
     (refs are the source planes of the forward / near-backward /
     far-backward references), or planes already on the device from
     :func:`upload_source_luma`.  Under the analysis mesh the planes shard
-    by rows and each band runs on its slot (:func:`_mesh_frame_analysis`).
-    Otherwise the frame runs through ``programs``, the caller's
+    by rows and each band runs on its slot (:func:`mesh_analysis`).  The
+    frame, or each band, runs through ``programs``, the caller's
     ``device/graphs.AnalysisPrograms`` (on a card one CUDA graph per key
-    after the key's first frame); without one, through a runner of its
-    own, whose only frame runs eagerly.  Returns a handle for
-    :func:`analyze_finish`.
+    after the key's first frame; a band through the runner the set holds
+    for its slot); without one, through a runner of its own, whose only
+    frame runs eagerly.  Returns a handle for :func:`analyze_finish`.
     """
     device = torch.device(device)
     mesh = _analysis_mesh(device)
@@ -604,16 +608,16 @@ def analyze_frame_async(luma_np, ref0_np, ref1_np, qindex: int, lam: float,
             raise ValueError(f"plane shapes {tuple(r.shape)} and "
                              f"{tuple(luma.shape)} differ")
     flags = (has_inter, has_bwd, has_bwd2)
-    if rows is not None:
-        out = _mesh_frame_analysis(mesh, rows, (luma, ref0, ref1, ref2),
-                                   qindex, lam, bd, flags)
-        return out, *flags
     if programs is None:
         from rav1e_tpu_torch.device.graphs import AnalysisPrograms
 
         programs = AnalysisPrograms(device)
-    out = programs.run(luma, ref0, ref1, ref2,
-                       float(tables.ac_q(qindex, 0, bd)), lam, bd, flags)
+    q = float(tables.ac_q(qindex, 0, bd))
+    if rows is not None:
+        out = mesh_analysis(mesh, rows, (luma, ref0, ref1, ref2), q, lam, bd,
+                            flags, programs)
+    else:
+        out = programs.run(luma, ref0, ref1, ref2, q, lam, bd, flags)
     return out, *flags
 
 
@@ -623,22 +627,48 @@ def analysis_call(d, bd: int, flags):
     ``flags`` (has_inter, has_bwd, has_bwd2) ask, "ref0", "ref1", "ref2"
     (any integer type), and "qlam", the (2,) float32 ac quantizer and
     lambda.  Returns its seven outputs packed (:func:`pack_outputs`)."""
-    luma = d["luma"].to(_I32)
-    ref0 = d["ref0"].to(_I32) if flags[0] else luma
-    ref1 = d["ref1"].to(_I32) if flags[1] else ref0
-    ref2 = d["ref2"].to(_I32) if flags[2] else ref0
-    out = _frame_analysis(luma, ref0, ref1, ref2, d["qlam"][0], d["qlam"][1],
+    out = _frame_analysis(*_key_planes(d, flags), d["qlam"][0], d["qlam"][1],
                           bd, *flags)
     return pack_outputs(out[:7])
 
 
-def _out_spec(shape):
+def _key_planes(d, flags):
+    """(luma, ref0, ref1, ref2) as int32 from a key's static buffers: the
+    references ``flags`` leave out stand in as the whole-frame run has
+    them."""
+    luma = d["luma"].to(_I32)
+    ref0 = d["ref0"].to(_I32) if flags[0] else luma
+    ref1 = d["ref1"].to(_I32) if flags[1] else ref0
+    ref2 = d["ref2"].to(_I32) if flags[2] else ref0
+    return luma, ref0, ref1, ref2
+
+
+def band_call(d, top: int, rows: int, bd: int, flags):
+    """The analysis of one band of the mesh on the static buffers of a
+    ``BandPrograms`` key: ``d`` holds the band's window of each plane the
+    key reads (its ``rows`` interior rows after ``top`` halo rows) and
+    "qlam", as :func:`analysis_call`.  Returns the interior's size, mode and
+    inter maps, rate map and mv0-mv2 packed (``pack_outputs(..., band=
+    True)``): what :func:`_mesh_frame_analysis` keeps of a band."""
+    size_map, mode_map, inter_map, _bits, mv0, mv1, mv2, rate_map = \
+        _frame_analysis(*_key_planes(d, flags), d["qlam"][0], d["qlam"][1],
+                        bd, *flags)
+    c, nc = top // 8, rows // 8
+    m, nm = top // 16, rows // 16
+    return pack_outputs(
+        [t[c : c + nc] for t in (size_map, mode_map, inter_map, rate_map)]
+        + [t[m : m + nm] for t in (mv0, mv1, mv2)], band=True)
+
+
+def _out_spec(shape, band=False):
     """(dtype, shape) of each of an analysis's seven outputs in handle
-    order, for a padded plane of ``shape``."""
+    order, for a padded plane of ``shape``; with ``band``, of the outputs
+    a band of the mesh keeps for its ``shape`` interior, the rate map in
+    place of bits_est."""
     h, w = shape
     n8, n16 = (h // 8, w // 8), (h // 16, w // 16, 2)
-    return ((_I32, n8), (_I32, n8), (torch.bool, n8), (_F32, ()),
-            (_I32, n16), (_I32, n16), (_I32, n16))
+    return ((_I32, n8), (_I32, n8), (torch.bool, n8),
+            (_F32, n8 if band else ()), (_I32, n16), (_I32, n16), (_I32, n16))
 
 
 # pack order: the bool inter map last, so every other section starts at a
@@ -646,11 +676,12 @@ def _out_spec(shape):
 _PACK_ORDER = (0, 1, 3, 4, 5, 6, 2)
 
 
-def pack_outputs(outs):
-    """An analysis's seven outputs (size, mode and inter maps, bits_est,
-    mv0-mv2) as one uint8 tensor, so that a replay's results are copied out
-    of the graph's memory in one clone (:func:`unpack_outputs` undoes it)."""
-    spec = _out_spec((outs[0].shape[0] * 8, outs[0].shape[1] * 8))
+def pack_outputs(outs, band=False):
+    """An analysis's seven outputs (size, mode and inter maps, bits_est, or
+    with ``band`` a band's rate map, mv0-mv2) as one uint8 tensor, so that a
+    replay's results are copied out of the graph's memory in one clone
+    (:func:`unpack_outputs` undoes it)."""
+    spec = _out_spec((outs[0].shape[0] * 8, outs[0].shape[1] * 8), band)
     for t, (dtype, shape) in zip(outs, spec):
         if t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"analysis output {t.dtype} {tuple(t.shape)}, "
@@ -659,10 +690,10 @@ def pack_outputs(outs):
                       for i in _PACK_ORDER])
 
 
-def unpack_outputs(flat, shape):
+def unpack_outputs(flat, shape, band=False):
     """The seven outputs of a :func:`pack_outputs` buffer for a padded plane
-    of ``shape``, as views into it."""
-    spec = _out_spec(shape)
+    of ``shape`` (with ``band``, a band's interior), as views into it."""
+    spec = _out_spec(shape, band)
     views, o = [None] * 7, 0
     for i in _PACK_ORDER:
         dtype, shp = spec[i]
@@ -680,9 +711,8 @@ def _padded_shape(p):
 
 
 def _scalars(qindex: int, lam: float, bd: int, device):
-    """q and lambda as float32 0-d tensors, for the analysis of a band of
-    the mesh (an ``AnalysisPrograms`` key loads the same values into its
-    static "qlam")."""
+    """q and lambda as float32 0-d tensors, for the eager analyses (a runner's
+    key loads the same values into its static "qlam")."""
     q = float(tables.ac_q(qindex, 0, bd))
     return (torch.tensor(q, dtype=_F32, device=device),
             torch.tensor(lam, dtype=_F32, device=device))
@@ -697,7 +727,8 @@ def _mesh_frame_analysis(mesh, rows, planes, qindex, lam, bd, flags):
     :func:`_frame_analysis` on its slot and keeps its interior.  The maps,
     MV fields and rate maps gather onto the first slot; the rate map is
     summed there whole, in the order of the unsharded run, so ``bits_est``
-    is the unsharded value too."""
+    is the unsharded value too.  The plain version of :func:`mesh_analysis`,
+    for the comparisons."""
     h = rows[-1][1]
     dev0 = mesh.devices[0]
     parts = []
@@ -719,6 +750,41 @@ def _mesh_frame_analysis(mesh, rows, planes, qindex, lam, bd, flags):
                                                 inter_map, rate_map)]
             interior += [t[m : m + nm] for t in (mv0, mv1, mv2)]
         parts.append([send_back(t, mesh, i, dev0) for t in interior])
+    size_map, mode_map, inter_map, rate_map, mv0, mv1, mv2 = (
+        torch.cat([pt[k] for pt in parts]) for k in range(7))
+    return size_map, mode_map, inter_map, rate_map.sum(), mv0, mv1, mv2
+
+
+def mesh_analysis(mesh, rows, planes, q: float, lam: float, bd: int, flags,
+                  programs):
+    """:func:`_mesh_frame_analysis` with each band run by ``programs``'
+    runner for its slot (``AnalysisPrograms.band``): the band's window of
+    each plane the key reads and q/lambda go into the key's static buffers
+    on the slot's stream, and the runner returns the interior's outputs
+    packed, copied out of its memory on that stream.  The packed bands
+    gather onto the first slot, where they are unpacked and the rate map is
+    summed whole, as the eager version does.
+
+    Every slot receives its windows before any band runs, and every band is
+    enqueued before any is gathered: a gather orders the gathering stream
+    behind the band's slot, and a window received after it would order the
+    next slot behind that, so the bands would run one after another."""
+    h, w = rows[-1][1], planes[0].shape[1]
+    dev0 = mesh.devices[0]
+    bands = []
+    for i, (lo, hi) in enumerate(rows):
+        top = min(ANALYSIS_HALO, lo)
+        bot = min(ANALYSIS_HALO, h - hi)
+        bands.append((top, hi - lo, [
+            p.window(i, lo - top, hi + bot) if used else None
+            for p, used in zip(planes, (True, *flags))]))
+    flats = []
+    for i, (top, n, windows) in enumerate(bands):
+        with on_slot(mesh, i):
+            flats.append(programs.band(mesh, i).run(*windows, top, n, q, lam,
+                                                    bd, flags))
+    parts = [unpack_outputs(send_back(flat, mesh, i, dev0), (n, w), band=True)
+             for i, (flat, (_, n, _)) in enumerate(zip(flats, bands))]
     size_map, mode_map, inter_map, rate_map, mv0, mv1, mv2 = (
         torch.cat([pt[k] for pt in parts]) for k in range(7))
     return size_map, mode_map, inter_map, rate_map.sum(), mv0, mv1, mv2

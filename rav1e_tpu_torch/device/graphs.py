@@ -8,6 +8,11 @@ counterparts of the reference's compiled programs.
   (padded shape, bit depth, references), for ``rav1e_tpu/device/
   analysis.py`` ``frame_analysis_jit``; the satd8 and grid_search kernels
   run inside it as captured nodes;
+- :class:`BandPrograms`: under the analysis mesh, the analysis of one
+  slot's band, one graph per (window shape, halo and interior rows, bit
+  depth, references) on the slot's card, for the same ``frame_analysis_jit``
+  as GSPMD partitions it over the reference's mesh; an ``AnalysisPrograms``
+  holds one per slot of each mesh it meets;
 - :class:`CdefPrograms`: the standalone CDEF stage, one graph per (planes,
   grid, damping, bit depth, strength lists), for ``rav1e_tpu/device/
   filters.py`` ``cdef_stage_jit``.
@@ -29,18 +34,22 @@ buffer (``chain.fetch_chain`` reads them after the next frame's
 predispatch has replayed; its header goes to pinned host memory in stream
 order before any later replay, ``chain.dispatch_chain``), the analysis's
 seven outputs in one clone (the pipeline holds several predispatched
-analyses before it reads any), and the CDEF stage's planes and index map,
-which its caller downloads.
+analyses before it reads any), a band's packed interior outputs in one
+clone on its slot's stream (the gather on the first slot may read them
+after the slot's next replay, and on the gathering card it is handed the
+tensor itself), and the CDEF stage's planes and index map, which its
+caller downloads.
 
 All of a runner's graphs share its pool, so two keys' graphs may hold their
 temporaries and outputs in the same memory.  That is safe because a runner
 replays one key's graphs and copies out their results before it replays
-anything else, all on one stream.  Captures use the thread-local capture
-mode, so GOP workers (``api/channel.py``), each a pipeline on a stream of
-its own, may pin memory and synchronize while another captures, and each
-thread captures on a stream of its own (:func:`_capture_stream`).  The
-kernels' launches inside a capture are counted at each replay
-(``kernels.counting_capture``).
+anything else, all on one stream.  The band runners of a mesh's slots
+replay at once, each on its slot's stream, so each has a pool of its own.
+Captures use the thread-local capture mode, so GOP workers
+(``api/channel.py``), each a pipeline on a stream of its own, may pin
+memory and synchronize while another captures, and each thread captures on
+a stream of its own (:func:`_capture_stream`).  The kernels' launches
+inside a capture are counted at each replay (``kernels.counting_capture``).
 
 The runners live for the process, as the reference's ``lru_cache`` keeps
 its compiled programs: a :class:`ProgramSet` (one runner of each kind)
@@ -51,17 +60,19 @@ and a set moves on only after its holder's last copy-out: the argument
 above holds across pipelines as it does across frames, once the next holder
 is ordered behind the last one's work.  On a card the set's return records
 an event on each stream its runners last ran on, and its next checkout
-makes the new holder's stream wait on them (:meth:`ProgramStore.acquire`).
-A key's graphs may so be captured in one thread and replayed on another
-thread's stream, which CUDA allows: a graph is launched on whatever stream
-its replay names.  A set whose holder raised inside a run is dropped, not
-returned: a failed capture may leave a key half built.
+makes the new holder's stream wait on them (:meth:`ProgramStore.acquire`);
+its band runners' streams are their slots' streams, which every holder
+shares through the one cached mesh.  A key's graphs may so be captured in
+one thread and replayed on another thread's stream, which CUDA allows: a
+graph is launched on whatever stream its replay names.  A set whose holder
+raised inside a run is dropped, not returned: a failed capture may leave a
+key half built.
 
 On the CPU a runner runs the same calls eagerly, into the same static
 buffers, and copies out the same outputs, so a CPU test sees a stale read,
 also across pipelines that share a set.  There is no switch back to the
 eager calls on a card: a capture or replay that fails raises, with a note
-naming the program and the key.
+naming the program (a band runner's names its slot) and the key.
 """
 
 from __future__ import annotations
@@ -186,8 +197,9 @@ class Programs:
         them."""
         try:
             return self._run_key(key, inputs, make_calls)
-        except BaseException:
+        except BaseException as e:
             self.failed = True
+            e.add_note(f"in a run of the {self.program} of key {key}")
             raise
 
     def _run_key(self, key, inputs, make_calls) -> dict:
@@ -223,9 +235,15 @@ class Programs:
             self.counts["eager"] += 1
         return d
 
-    def _capture(self, key, k: KeyPrograms) -> None:
+    def graph_pool(self):
+        """The runner's graph pool, made at its first capture: every graph
+        of the runner and no other runner's."""
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def _capture(self, key, k: KeyPrograms) -> None:
+        pool = self.graph_pool()
         d = k.data
         graphs = []
         with torch.cuda.device(self.device), \
@@ -234,7 +252,7 @@ class Programs:
                 g = torch.cuda.CUDAGraph()
                 try:
                     with kernels.counting_capture() as launches:
-                        g.capture_begin(pool=self._pool,
+                        g.capture_begin(pool=pool,
                                         capture_error_mode="thread_local")
                         try:
                             out = call(d)
@@ -315,13 +333,31 @@ class ChainPrograms(Programs):
         return (g.has_bwd, g.has_bwd2, y, uv)
 
 
+def _analysis_inputs(luma, refs, q: float, lam: float, flags) -> dict:
+    """A key's inputs of an analysis: the subject plane, the references
+    ``flags`` (has_inter, has_bwd, has_bwd2) say the key reads (the others
+    are not copied), and q/lambda as a (2,) float32 array."""
+    inputs = {"luma": luma, "qlam": np.array([q, lam], np.float32)}
+    for name, plane, used in zip(("ref0", "ref1", "ref2"), refs, flags):
+        if used:
+            inputs[name] = plane
+    return inputs
+
+
 class AnalysisPrograms(Programs):
     """The frame analysis of one pipeline, by (padded shape, bit depth,
-    has_inter, has_bwd, has_bwd2): one graph per key.  The mesh path
-    (``analysis._mesh_frame_analysis``) and the ``gaps`` diagnostics stay
-    eager."""
+    has_inter, has_bwd, has_bwd2): one graph per key.  Under the analysis
+    mesh each band runs through the :class:`BandPrograms` it holds for the
+    band's slot (:meth:`band`).  The ``gaps`` diagnostics stay eager."""
 
     program = "frame analysis"
+
+    def __init__(self, device):
+        super().__init__(device)
+        self.bands = {}          # (mesh, slot) -> BandPrograms
+        # the holder's counts by runner name (ProgramSet.hold), into which
+        # a band runner made later puts its own
+        self.holder_counts = {}
 
     def run(self, luma, ref0, ref1, ref2, q: float, lam: float, bd: int,
             flags):
@@ -332,18 +368,59 @@ class AnalysisPrograms(Programs):
         (has_inter, has_bwd, has_bwd2).  Returns the seven outputs
         (``analysis.analyze_finish``'s handle order) as views into one copy
         that later runs leave alone."""
-        inputs = {"luma": luma, "qlam": np.array([q, lam], np.float32)}
-        for name, plane, used in zip(("ref0", "ref1", "ref2"),
-                                     (ref0, ref1, ref2), flags):
-            if used:
-                inputs[name] = plane
         shape = tuple(luma.shape)
         flags = tuple(flags)
         d = self._run(
-            (shape, bd, *flags), inputs,
+            (shape, bd, *flags),
+            _analysis_inputs(luma, (ref0, ref1, ref2), q, lam, flags),
             lambda: [(("out",), lambda d: (
                 analysis.analysis_call(d, bd, flags),))])
         return analysis.unpack_outputs(d["out"].clone(), shape)
+
+    def band(self, mesh, slot: int) -> "BandPrograms":
+        """The runner of slot ``slot`` of ``mesh``, made on the slot's
+        device at its first band.  Named "band <slot>" ("band <slot> of
+        mesh <k>" for the k-th mesh after the first the runner meets), it
+        counts into :attr:`holder_counts` by that name."""
+        r = self.bands.get((mesh, slot))
+        if r is None:
+            meshes = list(dict.fromkeys(m for m, _ in self.bands))
+            k = meshes.index(mesh) if mesh in meshes else len(meshes)
+            name = f"band {slot}" + (f" of mesh {k}" if k else "")
+            r = self.bands[(mesh, slot)] = BandPrograms(mesh.devices[slot],
+                                                        name)
+            r.counts = self.holder_counts.setdefault(name, new_counts())
+        return r
+
+
+class BandPrograms(Programs):
+    """The analysis of one band of the analysis mesh, on one slot's device,
+    by (window shape, top halo rows, interior rows, bit depth, has_inter,
+    has_bwd, has_bwd2): one graph per key, in a pool of its own, since the
+    slots of a mesh replay at once on their streams.  ``name`` is the
+    runner's in its set's stats."""
+
+    def __init__(self, device, name: str):
+        super().__init__(device)
+        self.name = name
+        self.program = f"{name} analysis"
+
+    def run(self, luma, ref0, ref1, ref2, top: int, rows: int, q: float,
+            lam: float, bd: int, flags):
+        """The analysis of one band, on the current stream (the slot's):
+        the band's window of each plane the key reads (device tensors, the
+        others None), its ``top`` halo rows and ``rows`` interior rows,
+        q/lambda, the bit depth and (has_inter, has_bwd, has_bwd2).
+        Returns the interior's outputs packed (``analysis.band_call``), a
+        copy made on the stream right after the run, which later runs leave
+        alone."""
+        flags = tuple(flags)
+        d = self._run(
+            (tuple(luma.shape), top, rows, bd, *flags),
+            _analysis_inputs(luma, (ref0, ref1, ref2), q, lam, flags),
+            lambda: [(("out",), lambda d: (
+                analysis.band_call(d, top, rows, bd, flags),))])
+        return d["out"].clone()
 
 
 class CdefPrograms(Programs):
@@ -372,7 +449,8 @@ class CdefPrograms(Programs):
 
 class ProgramSet:
     """One runner of each kind, used together by one pipeline at a time:
-    ``chain``, ``analysis`` and ``cdef``."""
+    ``chain``, ``analysis`` (with the band runners it holds) and
+    ``cdef``."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -382,16 +460,27 @@ class ProgramSet:
         self.ready = []       # events of the last holder's streams
 
     def runners(self) -> dict:
-        """The runners by the name ``stats`` gives them."""
+        """The runners by the name ``stats`` gives them, the analysis's band
+        runners ("band <slot>") after the three."""
         return {"chain": self.chain, "analysis": self.analysis,
-                "CDEF": self.cdef}
+                "CDEF": self.cdef,
+                **{r.name: r for r in self.analysis.bands.values()}}
+
+    def hold(self) -> dict:
+        """Fresh counts (:func:`new_counts`) of a new holder in every
+        runner, by name, band runners made later included."""
+        counts = self.analysis.holder_counts = {}
+        for name, r in self.runners().items():
+            r.counts = counts[name] = new_counts()
+        return counts
 
     @property
     def failed(self) -> bool:
         return any(r.failed for r in self.runners().values())
 
     def streams(self) -> set:
-        """The streams the runners last ran on (none on the CPU)."""
+        """The streams the runners last ran on (none on the CPU): the band
+        runners' are their slots' streams."""
         return {r.stream for r in self.runners().values()
                 if r.stream is not None}
 

@@ -2314,10 +2314,7 @@ class FramePipeline:
         if self._programs is None:
             store = _graphs.STORE
             pset = store.acquire(self.device)
-            self._program_counts = {}
-            for name, runner in pset.runners().items():
-                runner.counts = self._program_counts[name] = (
-                    _graphs.new_counts())
+            self._program_counts = pset.hold()
             self._programs = pset
             self._programs_return = weakref.finalize(self, store.release,
                                                      pset)
@@ -2347,10 +2344,12 @@ class FramePipeline:
             self._programs_return()
 
     def program_stats(self) -> dict:
-        """Per runner ("chain", "analysis", "CDEF"): this pipeline's own
-        eager, capturing and replayed runs, and under "set" the stats of
-        the runner it holds or held (``Programs.stats``: over every
-        pipeline that held it); empty before the first device run."""
+        """Per runner ("chain", "analysis", "CDEF", and under the analysis
+        mesh "band <slot>" per slot, ``ProgramSet.runners``): this
+        pipeline's own eager, capturing and replayed runs, and under "set"
+        the stats of the runner it holds or held (``Programs.stats``: over
+        every pipeline that held it, with its keys and pool bytes); empty
+        before the first device run."""
         if self._programs is None:
             return {}
         return {name: dict(self._program_counts[name], set=runner.stats())

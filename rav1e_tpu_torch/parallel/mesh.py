@@ -23,6 +23,7 @@ use XLA's forced host devices.
 from __future__ import annotations
 
 import contextlib
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -54,23 +55,29 @@ ME_HALO = 64
 
 class Mesh:
     """A 1-D device mesh: ``axis`` and one ``torch.device`` per slot.  The
-    slots' CUDA streams are made at their first use."""
+    slots' CUDA streams are made at their first use, once: every GOP worker
+    of a process shares the one cached mesh of ``analysis._analysis_mesh``,
+    and a copy ordered on a stream nobody waits for would race."""
 
     def __init__(self, devices, axis: str = "tile"):
         self.devices = tuple(torch.device(d) for d in devices)
         self.axis = axis
         self._streams = None
+        self._lock = threading.Lock()
 
     @property
     def size(self) -> int:
         return len(self.devices)
 
     def streams(self):
-        """One CUDA stream per slot, None for a CPU slot."""
+        """One CUDA stream per slot, None for a CPU slot; the same tuple for
+        every caller, whichever thread asks first."""
         if self._streams is None:
-            self._streams = tuple(
-                torch.cuda.Stream(device=d) if d.type == "cuda" else None
-                for d in self.devices)
+            with self._lock:
+                if self._streams is None:
+                    self._streams = tuple(
+                        torch.cuda.Stream(device=d) if d.type == "cuda"
+                        else None for d in self.devices)
         return self._streams
 
 

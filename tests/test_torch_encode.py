@@ -203,6 +203,7 @@ def _port_files():
                ROOT / "tests" / "test_torch_chain_graphs.py",
                ROOT / "tests" / "test_torch_analysis_graphs.py",
                ROOT / "tests" / "test_torch_program_store.py",
+               ROOT / "tests" / "test_torch_mesh_graphs.py",
                ROOT / "tests" / "host_reads.py"])
 
 

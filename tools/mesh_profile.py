@@ -7,14 +7,19 @@ On chip_smoke.py's synthetic 1080p pan, in turns (unsharded, mesh, mesh,
 unsharded) after a warm-up of each, with the mesh made of ``--slots`` slots
 of cuda:0 (each band on a stream of its own):
 
-1. the analysis alone (``analysis.analyze_frame``) of a key, a forward-inter
-   and a bidirectional frame: host-clock ms per call (ending in a
-   synchronize) and the kernels' launches per call; then each once more
-   under torch.profiler: the device-busy share of the profiled wall time
-   (union of CUDA kernel and memcpy intervals) and the most CUDA streams
-   busy at once;
+1. the analysis alone (``analysis.analyze_frame_async`` and
+   ``analyze_finish``) of a key, a forward-inter and a bidirectional frame,
+   through one runner per turn (``device/graphs.AnalysisPrograms``, whose
+   band runners replay one CUDA graph per slot and key under the mesh), so
+   that after two warm-up calls of a kind (eager, capturing) every call is
+   a replay: host-clock ms per call (ending in a synchronize) and the
+   kernels' launches per call; then each once more under torch.profiler:
+   the device-busy share of the profiled wall time (union of CUDA kernel
+   and memcpy intervals), the most CUDA streams busy at once, and the host
+   launches (kernel and graph launches, copies, memsets);
 2. a ``--frames``-frame chain-on encode through the default preset: frames/s
-   and launches, and the same two profiler numbers.
+   and launches, and the same two profiler numbers; after a warm-up encode
+   of each, so that the pipelines' sets replay every key.
 
 Prints the card's name and power limit first.  Every number is this run's.
 """
@@ -32,8 +37,8 @@ import chip_smoke  # noqa: E402
 
 
 def profiled(fn):
-    """(device-busy share of the wall time, the most streams busy at once)
-    of one call of fn under torch.profiler."""
+    """(device-busy share of the wall time, the most streams busy at once,
+    host launches) of one call of fn under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -45,7 +50,10 @@ def profiled(fn):
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t) * 1e3
     busy_ms, streams = chip_smoke.device_activity(prof)
-    return busy_ms / wall_ms, streams
+    cuda = torch.autograd.DeviceType.CUDA
+    host = sum(1 for e in prof.events() if e.device_type != cuda
+               and e.name.startswith(chip_smoke.HOST_LAUNCH_CALLS))
+    return busy_ms / wall_ms, streams, host
 
 
 def timed(fn, reps):
@@ -75,8 +83,8 @@ def main() -> int:
     import torch
 
     import rav1e_tpu_torch as r
-    from rav1e_tpu_torch import tables
     from rav1e_tpu_torch.device import analysis
+    from rav1e_tpu_torch.device.graphs import AnalysisPrograms
     from rav1e_tpu_torch.parallel import make_mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -86,41 +94,43 @@ def main() -> int:
                                  np.random.default_rng(chip_smoke.SEED))
     mesh = make_mesh(args.slots, devices=["cuda:0"] * args.slots)
     qi = chip_smoke.QUANTIZER
-    lam = 0.12 * (tables.ac_q(qi, 0, 8) / 8.0) ** 2
+    lam = chip_smoke.analysis_lam(qi)
     y = [clip[i][0] for i in range(3)]
     frames = {"key": (y[1], None, None), "inter": (y[1], y[0], None),
               "inter+bwd": (y[1], y[0], y[2])}
-    orig = analysis._analysis_mesh
     turns = (("unsharded", None), ("mesh", mesh), ("mesh", mesh),
              ("unsharded", None))
-    try:
-        for label, m in turns:
-            analysis._analysis_mesh = lambda device, m=m: m
-            for kind, planes in frames.items():
-                def call(planes=planes):
-                    analysis.analyze_frame(*planes, qi, lam, 8,
-                                           device="cuda")
+    for label, m in turns:
+        runner = AnalysisPrograms("cuda")  # one per turn, every kind
+        for kind, (cur, ref0, ref1) in frames.items():
+            def call(cur=cur, ref0=ref0, ref1=ref1):
+                analysis.analyze_finish(analysis.analyze_frame_async(
+                    cur, ref0, ref1, qi, lam, 8, device="cuda",
+                    programs=runner))
 
-                call()  # warm-up
+            with chip_smoke.using_mesh(m):
+                call()  # warm-up: the key's eager run
+                call()  # and its capture
                 ms, launches = timed(call, args.reps)
-                share, streams = profiled(call)
-                print(f"analysis {kind:10s} {label:9s} {ms:.3f} ms/call, "
-                      f"device busy {share:.4f} of the wall, {streams} "
-                      f"streams busy at once, launches/call {launches}",
-                      flush=True)
-        sub = clip[:args.frames]
-        for m in (None, mesh):  # warm-up
-            chip_smoke.mesh_encode(r, sub[:2], m)
-        for label, m in turns:
-            pkts, launches, s, _ = chip_smoke.mesh_encode(r, sub, m)
-            share, streams = profiled(
-                lambda: chip_smoke.mesh_encode(r, sub, m))
-            print(f"encode {len(sub)} frames {label:9s} "
-                  f"{len(sub) / s:.4f} frames/s, launches {launches}, "
-                  f"device busy {share:.4f} of the wall, {streams} streams "
-                  f"busy at once, {len(pkts)} packets", flush=True)
-    finally:
-        analysis._analysis_mesh = orig
+                share, streams, host = profiled(call)
+            print(f"analysis {kind:10s} {label:9s} {ms:.3f} ms/call, "
+                  f"device busy {share:.4f} of the wall, {streams} "
+                  f"streams busy at once, {host} host launches, "
+                  f"launches/call {launches}", flush=True)
+    sub = clip[:args.frames]
+    # warm-up: two contexts of each, so that every key of the clip (its key
+    # frame's among them, one frame a context) is captured
+    for m in (None, mesh, None, mesh):
+        chip_smoke.mesh_encode(r, sub, m)
+    for label, m in turns:
+        pkts, launches, s, _ = chip_smoke.mesh_encode(r, sub, m)
+        share, streams, host = profiled(
+            lambda: chip_smoke.mesh_encode(r, sub, m))
+        print(f"encode {len(sub)} frames {label:9s} "
+              f"{len(sub) / s:.4f} frames/s, launches {launches}, "
+              f"device busy {share:.4f} of the wall, {streams} streams "
+              f"busy at once, {host} host launches, {len(pkts)} "
+              "packets", flush=True)
     return 0
 
 
