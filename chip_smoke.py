@@ -16,7 +16,14 @@ Phases, each printing one line with its time:
    satd8 at the intra and subpel shapes and at 12-bit diffs whose 64x64
    block sums reach their bound (4096 * 4095), grid_search at the four
    full-pel rounds that me_field runs on two frames of the clip, on a flat
-   plane (every key ties within a seed) and at a ragged n = 37;
+   plane (every key ties within a seed) and at a ragged n = 37; the filter
+   stage's kernels (cdef_dirs, cdef_search, cdef_apply, deblock_edges) at
+   the nine calls of the chain's stage 4 on a bidirectional 1080p frame of
+   the clip, the standalone CDEF stage at 10 and 12 bits, 4:2:2 (with pri 0
+   and sec 3 candidates), 4:4:4 and a ragged 200x136 crop, and the luma
+   deblock passes at 10 and 12 bits and on the ragged crop; prints each
+   route's filter-kernel launches per run (a chain frame's stage 4, a
+   standalone CDEF stage);
 4. slice: a 16-frame 1080p 8-bit 4:2:0 encode through the default
    rav1e_tpu_torch.Config() at speed 6 (device "cuda"; device analysis and
    device reconstruction chain on, pyramid reordering); prints the frames
@@ -45,7 +52,8 @@ Phases, each printing one line with its time:
    after each run, the earlier run's copies are kept, and each run's host
    time to enqueue is printed; each stage timed
    by CUDA events eagerly and as a replay, with its host launches, kernels
-   and device-busy time from torch.profiler, and one whole dispatch +
+   and device-busy time from torch.profiler (stage 4 also with its filter
+   kernels' launches, eager and replayed), and one whole dispatch +
    fetch eager and replayed, whose steady state must make fewer than 100
    host launches;
 7. analysis: the port's whole-frame analysis on the card against the same
@@ -125,8 +133,12 @@ Phases, each printing one line with its time:
    seconds and runs of the replayed programs, of which the second and
    third must run no key eagerly and capture none, and its JSON line;
 16. launches: every phase's satd8 and grid_search launches equal those of
-   every earlier card run (``LAUNCHES_BY_PHASE``); store: the process's
-   sets of runners and their pools' bytes.
+   every earlier card run (``LAUNCHES_BY_PHASE``); each phase has already
+   held the filter kernels' launches to its runs of each route (chain
+   frames x a stage-4 run's launches + CDEF stages x a CDEF run's, the
+   runs counted at ``ChainPrograms.run`` and ``CdefPrograms.run``; the
+   CLI's equal to the slice's); store: the process's sets of runners and
+   their pools' bytes.
 
 The line before the last is the kernels' JSON summary, preceded by
 nvidia-smi's name and power limit; the last line is
@@ -135,7 +147,9 @@ Each kernel's bound is the larger of its bytes (each input read once, each
 output written once) over the H100's 3.35 TB/s and its integer operations
 over the card's 32-bit integer rate, its SMs x 64 INT32 lanes x its maximum
 SM clock (``nvidia-smi --query-gpu=clocks.max.sm``, printed in the env
-phase), computed from this run's inputs.
+phase), computed from this run's inputs (the filter kernels' operations
+from the cells, samples and edges this run's data filters).  No one
+PyTorch call computes any kernel's function: every ``library_ms`` is null.
 """
 
 from __future__ import annotations
@@ -147,6 +161,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -168,6 +183,23 @@ INT32_LANES_PER_SM = 64
 SATD_OPS_PER_CELL = 16 * 24 + 64 + 64
 # a kernel's time: the median of this many CUDA-event timings of 20 calls
 KERNEL_RUNS = 5
+# the filter stage's kernels (csrc/cdef.cu, csrc/deblock.cu), whose launches
+# each phase's routes give: a chain frame's stage 4 and a standalone CDEF
+# stage launch fixed sets of them (ROUTE_LAUNCHES)
+FILTER_KERNELS = ("cdef_dirs", "cdef_search", "cdef_apply", "deblock_edges")
+# integer operations, counted from the plain versions' formulas: cdef_dirs
+# per 8x8 cell (64 samples x shift, offset and 8 bucket adds; 8 x 15
+# buckets squared, weighted and summed; the argmax and the variance);
+# CDEF per filtered sample (12 taps into the max/min envelopes, rounding
+# and the clamp) and per tap of nonzero strength (a constrain(): sub, abs,
+# shift, sub, max, min, sign, multiply, add); the SSE per sample (sub,
+# multiply, add); deblock per edge line of each filter size (masks, the
+# narrow filter, the flatness tests, the wide taps, the deltas)
+CDEF_DIRS_OPS_PER_CELL = 64 * 10 + 8 * 15 * 3 + 12
+CDEF_SAMPLE_OPS = 12 * 2 + 6
+CDEF_TAP_OPS = 9
+CDEF_SSE_OPS = 3
+DEBLOCK_OPS_PER_LINE = {4: 45, 6: 92, 8: 134, 14: 374}
 # (satd8, grid_search) launches of each phase's encode on the card, which
 # every card run has given (PERF.md, section 6): a replay counts the
 # launches its graph holds, so neither graphs nor their store moves them.
@@ -177,6 +209,62 @@ KERNEL_RUNS = 5
 LAUNCHES_BY_PHASE = {"slice": (94, 120), "cli": (94, 120),
                      "chain-off": (19, 12), "gop": (282, 360),
                      "mesh": (152, 96), "reference": (433, 340)}
+
+
+ANALYSIS_KERNELS = ("satd8", "grid_search")
+# runs of the two routes through the filter kernels since the last
+# reset_counts(): a chain frame (graphs.ChainPrograms.run: stage 4 once)
+# and a standalone CDEF stage (graphs.CdefPrograms.run); and each route's
+# filter-kernel launches per run, as the kernel phase counts them
+ROUTE_RUNS = {"chain": 0, "cdef": 0}
+ROUTE_LAUNCHES = {}
+_route_lock = threading.Lock()
+
+
+def count_routes() -> None:
+    """Count every run of the two routes, on any thread (wraps the
+    runners' ``run``)."""
+    from rav1e_tpu_torch.device import graphs
+
+    for cls, name in ((graphs.ChainPrograms, "chain"),
+                      (graphs.CdefPrograms, "cdef")):
+        def run(self, *a, _real=cls.run, _name=name, **k):
+            with _route_lock:
+                ROUTE_RUNS[_name] += 1
+            return _real(self, *a, **k)
+
+        cls.run = run
+
+
+def reset_counts() -> None:
+    """Set the kernels' launch counts and the routes' runs to 0."""
+    from rav1e_tpu_torch.device import kernels
+
+    kernels.reset_launches()
+    with _route_lock:
+        for k in ROUTE_RUNS:
+            ROUTE_RUNS[k] = 0
+
+
+def filter_launches(runs, extra_cdef=0):
+    """The filter kernels' launches that ``runs`` (route -> runs, as
+    ROUTE_RUNS) make, with ``extra_cdef`` more CDEF stages."""
+    n = {"chain": runs["chain"], "cdef": runs["cdef"] + extra_cdef}
+    return {k: sum(n[r] * ROUTE_LAUNCHES[r][k] for r in n)
+            for k in FILTER_KERNELS}
+
+
+def filter_launch_fault(label, launches, runs, extra_cdef=0):
+    """A fault unless the filter kernels' launches are those that the
+    phase's runs of each route make (a replay counts what its graph
+    holds)."""
+    want = filter_launches(runs, extra_cdef)
+    got = {k: launches.get(k, 0) for k in FILTER_KERNELS}
+    if got != want:
+        return (f"{label}: filter kernel launches {got}, not the {want} of "
+                f"{runs['chain']} chain frames and "
+                f"{runs['cdef'] + extra_cdef} CDEF stages")
+    return None
 
 
 def fail(msg: str) -> None:
@@ -304,7 +392,214 @@ def satd_bound_diffs(n, m, g):
     return d.reshape(n, 13, 64, 64).contiguous()
 
 
-def kernel_phase(dev, luma0, luma1, ops_per_s):
+def record_filter_calls(fn):
+    """fn() with the filter kernels' wrappers recording their arguments:
+    (fn's result, [(kernel, wrapper, plain version, args)] in call
+    order)."""
+    from rav1e_tpu_torch.device import dsp, filters
+
+    wrappers = ((dsp, "deblock_pass_device", "deblock_edges",
+                 dsp.deblock_pass_plain),
+                (filters, "cdef_dirs", "cdef_dirs", filters.cdef_dirs_plain),
+                (filters, "cdef_search", "cdef_search",
+                 filters.cdef_search_plain),
+                (filters, "cdef_apply", "cdef_apply",
+                 filters.cdef_apply_plain))
+    calls = []
+    reals = [getattr(mod, attr) for mod, attr, _n, _p in wrappers]
+    for (mod, attr, name, plain), real in zip(wrappers, reals):
+        def record(*a, _real=real, _name=name, _plain=plain):
+            calls.append((_name, _real, _plain, a))
+            return _real(*a)
+
+        setattr(mod, attr, record)
+    try:
+        out = fn()
+    finally:
+        for (mod, attr, _n, _p), real in zip(wrappers, reals):
+            setattr(mod, attr, real)
+    return out, calls
+
+
+def cdef_case(clip, w, h, bd, dec, lists, seed, dev):
+    """cdef_stage_core's inputs for the top-left w x h of the clip at
+    ``bd`` bits and chroma decimation ``dec`` (xdec, ydec): frame 1 as the
+    reconstruction (its grids with a 2px ring, edge-replicated where the
+    frame ends), frame 2 as the source, chroma decimated from the luma
+    planes shifted 37 columns a plane (the clip is 4:2:0), the bits below
+    the top 8 random, a random half of the cells skipped, and the strength
+    lists ``lists``."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    nby, nbx = -(-h // 8), -(-w // 8)
+    planes, rec, src = [], [], []
+    for pi, (xd, yd) in enumerate([(0, 0), dec, dec]):
+        ys, xs = 8 >> yd, 8 >> xd
+        planes.append((ys, xs, (h + (1 << yd) - 1) >> yd,
+                       (w + (1 << xd) - 1) >> xd))
+        grids = []
+        for frame, ring in ((clip[1][0], 2), (clip[2][0], 0)):
+            a = np.roll(frame, 37 * pi, axis=1)[:: 1 << yd, :: 1 << xd]
+            a = np.pad(a, ((ring, 8 + ring), (ring, 8 + ring)), mode="edge")[
+                : nby * ys + 2 * ring, : nbx * xs + 2 * ring].astype(np.int32)
+            a = (a << (bd - 8)) | rng.integers(0, 1 << (bd - 8), a.shape,
+                                               dtype=np.int32)
+            grids.append(torch.from_numpy(a).to(dev))
+        rec.append(grids[0])
+        src.append(grids[1])
+    filt = torch.from_numpy(rng.random((nby, nbx)) >= 0.5).to(dev)
+    grid = (nby, nbx, -(-h // 64), -(-w // 64), w, h)
+    return (planes, grid, 3, bd, rec, src, filt, list(lists[0]),
+            list(lists[1]))
+
+
+def _cdef_sample_ops(planes, grid, filt, cands, y_str, uv_str, sse):
+    """Integer operations of filtering the visible samples of ``filt``'s
+    cells at candidate ``cands`` (an int, or a per-cell tensor), plus the
+    SSE's when ``sse``."""
+    import torch
+
+    nby, nbx = grid[0], grid[1]
+    dev = filt.device
+    ops = 0
+    for pi, (ys, xs, vh, vw) in enumerate(planes):
+        rows = (vh - torch.arange(nby, device=dev) * ys).clamp(0, ys)
+        cols = (vw - torch.arange(nbx, device=dev) * xs).clamp(0, xs)
+        per_cell = rows[:, None] * cols[None, :] * filt
+        strs = y_str if pi == 0 else uv_str
+        taps = torch.tensor([(4 if v // 4 else 0) + (8 if v % 4 else 0)
+                             for v in strs], device=dev)
+        per_sample = (CDEF_SAMPLE_OPS + CDEF_TAP_OPS * taps[cands]
+                      + (CDEF_SSE_OPS if sse else 0))
+        ops += int((per_cell * per_sample).sum())
+    return ops
+
+
+def filter_bound(name, args, out):
+    """Bytes and integer operations of one filter-kernel call on these
+    inputs, with ``out`` its output: each input read once, each output
+    written once, and the operations this call's data needs (filtered
+    cells and samples, edges of nonzero size)."""
+    import torch
+
+    if name == "deblock_edges":
+        rec, fs = args[0], args[1]
+        ops = sum(4 * DEBLOCK_OPS_PER_LINE[k] * int((fs == k).sum())
+                  for k in DEBLOCK_OPS_PER_LINE)
+        return 4 * (2 * rec.numel() + fs.numel() + 1), ops
+    if name == "cdef_dirs":
+        luma, nby, nbx = args[:3]
+        return (4 * luma.numel() + 8 * nby * nbx,
+                CDEF_DIRS_OPS_PER_CELL * nby * nbx)
+    planes, grid = args[0], args[1]
+    cells = grid[0] * grid[1]
+    rec = args[4]
+    nbytes = 4 * sum(g.numel() for g in rec) + 9 * cells
+    if name == "cdef_search":
+        src, filt, y_str, uv_str = args[5], args[6], args[9], args[10]
+        nbytes += 4 * sum(g.numel() for g in src) + 8 * len(y_str) * cells
+        ops = sum(_cdef_sample_ops(planes, grid, filt, ci, y_str, uv_str,
+                                   True) for ci in range(len(y_str)))
+        return nbytes, ops
+    filt, sse, y_str, uv_str = args[5], args[8], args[9], args[10]
+    idx = out[1]
+    sb_rows, sb_cols = grid[2], grid[3]
+    by = (torch.arange(grid[0], device=filt.device) // 8).clamp(
+        max=sb_rows - 1)
+    bx = (torch.arange(grid[1], device=filt.device) // 8).clamp(
+        max=sb_cols - 1)
+    chosen = idx[by][:, bx]
+    nbytes += (sse.numel() * 8 + 8 * idx.numel()
+               + 8 * sum(ys * xs * cells for ys, xs, _h, _w in planes))
+    return nbytes, sse.numel() + _cdef_sample_ops(
+        planes, grid, filt, chosen, y_str, uv_str, False)
+
+
+def filter_cases(clip, dev):
+    """The filter kernels' calls of the kernel phase, as (label, kernel,
+    wrapper, plain version, args): the nine of the chain's stage 4 on a
+    1080p bidirectional frame of the clip (ChainPrograms' route), the
+    standalone CDEF stage at 10 and 12 bits, 4:2:2 (with pri 0 and sec 3
+    candidates), 4:4:4 and a ragged 200x136 crop, and the luma deblock
+    passes at 10 and 12 bits and on the ragged crop.  Also returns the
+    kernels' launches of one stage-4 run and of one CDEF stage run (the
+    routes' ROUTE_LAUNCHES)."""
+    import torch
+
+    from rav1e_tpu_torch.device import dsp, kernels
+    from rav1e_tpu_torch.device.filters import (_strength_lists,
+                                                cdef_stage_core)
+
+    _d, calls = chain_calls(chain_case(clip, dev), dev)
+    stage4 = calls[3][1]
+    with kernels.counting_capture() as per_chain:
+        _out, rec = record_filter_calls(stage4)
+    cases = []
+    planes = iter(("Y", "Y", "U", "U", "V", "V"))
+    for name, fn, plain, args in rec:
+        label = "1080p chain"
+        if name == "deblock_edges":
+            how = "vertical" if args[4] else "horizontal"
+            label += f" {next(planes)} {how}"
+        cases.append((label, name, fn, plain, args))
+    deblock_y = [a for _l, n, _f, _p, a in cases if n == "deblock_edges"][:2]
+    per_cdef = None
+    for label, w, h, bd, dec, lists in (
+            ("10-bit 4:2:0 1080p", WIDTH, HEIGHT, 10, (1, 1),
+             _strength_lists(9, 5)),
+            ("12-bit 4:4:4 1080p", WIDTH, HEIGHT, 12, (0, 0),
+             _strength_lists(62, 31)),
+            ("8-bit 4:2:2 1080p, pri 0, sec 3", WIDTH, HEIGHT, 8, (1, 0),
+             ([0, 3, 7, 63], [3, 0, 1, 60])),
+            ("ragged 200x136", 200, 136, 8, (1, 1), _strength_lists(9, 5))):
+        args = cdef_case(clip, w, h, bd, dec, lists, SEED + bd, dev)
+        with kernels.counting_capture() as tally:
+            _out, rec = record_filter_calls(lambda: cdef_stage_core(*args))
+        per_cdef = per_cdef or dict(tally)
+        cases += [(label, name, fn, plain, a) for name, fn, plain, a in rec]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    for rec_p, fs, level, _bd, vertical in deblock_y:
+        how = "vertical" if vertical else "horizontal"
+        for bd in (10, 12):
+            low = torch.randint(0, 1 << (bd - 8), rec_p.shape, generator=g,
+                                device=dev, dtype=torch.int32)
+            cases.append((f"{bd}-bit 1080p Y {how}", "deblock_edges",
+                          dsp.deblock_pass_device, dsp.deblock_pass_plain,
+                          ((rec_p << (bd - 8)) | low, fs, level, bd,
+                           vertical)))
+        cases.append((f"ragged 200x136 Y {how}", "deblock_edges",
+                      dsp.deblock_pass_device, dsp.deblock_pass_plain,
+                      (rec_p[: 4 * 34 + 16, : 4 * 50 + 16].contiguous(),
+                       fs[:34, :50].contiguous(), level, 8, vertical)))
+    return cases, dict(per_chain), per_cdef
+
+
+def _same(got, want):
+    """Max abs difference of two outputs (tensors or sequences of them),
+    inf where their shapes or dtypes differ."""
+    import torch
+
+    a = list(got) if isinstance(got, (tuple, list)) else [got]
+    b = list(want) if isinstance(want, (tuple, list)) else [want]
+    if len(a) != len(b):
+        return float("inf")
+    err = 0.0
+    for x, y in zip(a, b):
+        if isinstance(x, (tuple, list)):
+            err = max(err, _same(x, y))
+        elif x.shape != y.shape or x.dtype != y.dtype:
+            return float("inf")
+        elif x.numel():
+            err = max(err, float((x.to(torch.float64)
+                                  - y.to(torch.float64)).abs().max()))
+    return err
+
+
+def kernel_phase(dev, clip, ops_per_s):
+    """Each kernel against its plain version on the card at the main path's
+    shapes, timed beside its bound.  Returns the JSON line's numbers per
+    kernel and the filter kernels' launches per run of each route."""
     import torch
 
     from rav1e_tpu_torch.device import kernels
@@ -334,16 +629,16 @@ def kernel_phase(dev, luma0, luma1, ops_per_s):
     # (1080p, 64-padded to 1088x1920), the same rounds on a flat plane with
     # random seeds (every key ties within a seed), 12-bit samples at L0, and
     # a ragged n = 37
-    cur = upload_source_luma(luma1, dev).to(torch.int32)
-    ref = upload_source_luma(luma0, dev).to(torch.int32)
+    cur = upload_source_luma(clip[1][0], dev).to(torch.int32)
+    ref = upload_source_luma(clip[0][0], dev).to(torch.int32)
     rounds = grid_search_rounds(cur, ref)
     names = ["L2 R3 s2", "L2 R1 s1", "L1 R2 s1", "L0 R2 s1"]
     grid_cases = [(f"{nm} n{a[0].shape[0]}", a)
                   for nm, a in zip(names, rounds)]
     flat = torch.full_like(cur, 97)
     for nm, a in zip(names, grid_search_rounds(flat, flat)):
-        clip = a[9]
-        seeds = [ints(-2 * clip, 2 * clip + 1, tuple(sd.shape))
+        clip_mv = a[9]
+        seeds = [ints(-2 * clip_mv, 2 * clip_mv + 1, tuple(sd.shape))
                  for sd in a[4]]
         grid_cases.append((f"flat {nm}", (*a[:4], seeds, *a[5:])))
     l0 = rounds[3]
@@ -388,11 +683,23 @@ def kernel_phase(dev, luma0, luma1, ops_per_s):
         pms = cuda_ms(lambda: kernels.grid_search_plain(*a), 5)
         rows.append(("grid_search", label, err, runs, pms,
                      *bound(*grid_search_bound(a), ops_per_s)))
+    cases, per_chain, per_cdef = filter_cases(clip, dev)
+    for label, name, fn, plain, a in cases:
+        got = fn(*a)
+        want = plain(*a)
+        torch.cuda.synchronize()
+        err = _same(got, want)
+        if err != 0:
+            fail(f"{name} {label}: kernel != plain (max abs err {err})")
+        runs = [cuda_ms(lambda: fn(*a), 20) for _ in range(KERNEL_RUNS)]
+        pms = cuda_ms(lambda: plain(*a), 5)
+        rows.append((name, label, err, runs, pms,
+                     *bound(*filter_bound(name, a, got), ops_per_s)))
     summary = {}
     for i, (name, label, err, runs, pms, bms, by) in enumerate(rows):
         ms = float(np.median(runs))
         rows[i] = (name, label, err, ms, pms, bms, by)
-        print(f"  {name:11s} {label:24s} max_abs_err={err} kernel_ms={ms:.4f} "
+        print(f"  {name:13s} {label:32s} max_abs_err={err} kernel_ms={ms:.4f} "
               f"(median of {len(runs)}, {min(runs):.4f}-{max(runs):.4f}) "
               f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}) "
               f"share_of_bound={bms / ms:.3f}", flush=True)
@@ -400,11 +707,18 @@ def kernel_phase(dev, luma0, luma1, ops_per_s):
         s["max_abs_err"] = max(s["max_abs_err"], float(err))
     # the JSON line's times: the largest main-path call of each kernel
     for name, label in (("satd8", "subpel 8160x49x16x16"),
-                        ("grid_search", grid_cases[3][0])):
+                        ("grid_search", grid_cases[3][0]),
+                        *((k, "1080p chain") for k in FILTER_KERNELS[:3]),
+                        ("deblock_edges", "1080p chain Y vertical")):
         r = next(r for r in rows if r[0] == name and r[1] == label)
         summary[name].update(ms=r[3], plain_ms=r[4], bound_ms=r[5],
                              bound_by=r[6], shape=label)
-    return summary
+    routes = {"chain": {k: per_chain[k] for k in FILTER_KERNELS},
+              "cdef": {k: per_cdef[k] for k in FILTER_KERNELS}}
+    print(f"  filter kernels' launches per run: stage 4 of a chain frame "
+          f"{routes['chain']}, a standalone CDEF stage {routes['cdef']}",
+          flush=True)
+    return summary, routes
 
 
 # ---------------------------------------------------------------------------
@@ -552,12 +866,13 @@ def encode_phase(rav1e_tpu_torch, clip, chain, label):
     cdef_check = (None if chain
                   else check_cdef_replays(ctx.pipeline._cdef_programs))
     torch.cuda.synchronize()
-    kernels.reset_launches()
+    reset_counts()
     t = time.monotonic()
     pkts = encode(ctx, clip, rav1e_tpu_torch)
     torch.cuda.synchronize()
     enc_s = time.monotonic() - t
     launches = dict(kernels.LAUNCHES)
+    runs = dict(ROUTE_RUNS)
     spans = trace.stage_summary()
     trace.reset()
     if cdef_check is not None:
@@ -572,9 +887,21 @@ def encode_phase(rav1e_tpu_torch, clip, chain, label):
     coded = sum(1 for p in pkts if p.rec is not None and len(p.data) > 8)
     if coded < 1 or len(pkts) < n:
         fail(f"{label}: {len(pkts)} packets for {n} frames")
-    for name, k in launches.items():
-        if k <= 0:
+    # the chain-on path runs every kernel; the chain-off path no deblock
+    # pass (the host deblocks) and, besides the encode's, an eager CDEF
+    # stage per checked replay
+    path = ((*ANALYSIS_KERNELS, *FILTER_KERNELS) if chain
+            else (*ANALYSIS_KERNELS, *FILTER_KERNELS[:3]))
+    for name in path:
+        if launches[name] <= 0:
             fail(f"{label}: kernel {name} was not launched by the encode")
+    extra = 0 if cdef_check is None else len(cdef_check[0])
+    err = filter_launch_fault(label, launches, runs, extra)
+    if err:
+        fail(err)
+    print(f"  routes: {runs['chain']} chain frames, {runs['cdef']} CDEF "
+          f"stages (+{extra} eager, checking replays): filter kernel "
+          f"launches {filter_launches(runs, extra)}", flush=True)
     if ctx.pipeline.device.type != "cuda":
         fail(f"{label}: the default Config ran on {ctx.pipeline.device}, "
              "not the card")
@@ -848,7 +1175,7 @@ def chain_phase(clip, dev):
     launches counted.  Returns the report lines."""
     import torch
 
-    from rav1e_tpu_torch.device import chain
+    from rav1e_tpu_torch.device import chain, kernels
     from rav1e_tpu_torch.device.graphs import ChainPrograms
 
     case = chain_case(clip, dev)
@@ -902,6 +1229,18 @@ def chain_phase(clip, dev):
             for i, v in enumerate((ms, host, kern, busy)):
                 total[how][i] += v
         lines.append(f"stage {name:16s} " + " | ".join(row))
+        if name == "deblock+CDEF":
+            # the filter kernels one run launches, eagerly and as a replay
+            with kernels.counting_capture() as eager_tally:
+                call()
+            tallies = [{k: t[k] for k in FILTER_KERNELS}
+                       for t in (eager_tally, graph.launches)]
+            if tallies != [ROUTE_LAUNCHES["chain"]] * 2:
+                fail(f"chain stages: stage 4 launched {tallies[0]} eagerly "
+                     f"and {tallies[1]} as a replay, not "
+                     f"{ROUTE_LAUNCHES['chain']}")
+            lines.append(f"stage {name:16s} kernel launches a run: eager "
+                         f"{tallies[0]} | replay {tallies[1]}")
     lines.append(f"stage {'all five':16s} " + " | ".join(
         f"{how} ms={t[0]:.3f} host_launches={t[1]} kernels={t[2]} "
         f"device_busy_ms={t[3]:.3f}" for how, t in total.items()))
@@ -1386,7 +1725,7 @@ def gop_run(r, slots, clip, profiled):
     cfg = gop_config(r, slots)
     trace.reset()
     torch.cuda.synchronize()
-    kernels.reset_launches()
+    reset_counts()
     prof = (profile(activities=[ProfilerActivity.CUDA]) if profiled
             else contextlib.nullcontext())
     with prof:
@@ -1404,10 +1743,14 @@ def gop_run(r, slots, clip, profiled):
     if len(pkts) < len(clip):
         fail(f"gop: {len(pkts)} packets for {len(clip)} frames "
              f"(parallel_gops={slots})")
-    for name in ("satd8", "grid_search"):
+    for name in (*ANALYSIS_KERNELS, *FILTER_KERNELS):
         if run["launches"].get(name, 0) <= 0:
             fail(f"gop (parallel_gops={slots}): kernel {name} was not "
                  "launched")
+    err = filter_launch_fault(f"gop (parallel_gops={slots})",
+                              run["launches"], dict(ROUTE_RUNS))
+    if err:
+        fail(err)
     if profiled:
         t = time.monotonic()
         busy_ms, streams = device_activity(prof)
@@ -1658,9 +2001,12 @@ def reference_cell(r, dev, name, want):
     cell = reference_cells.CELLS[name]
     bad = []
     t = time.monotonic()
-    kernels.reset_launches()
+    reset_counts()
     pkts, ctx, spans = reference_cells.encode_traced(r, name, device=dev)
     launches = dict(kernels.LAUNCHES)
+    err = filter_launch_fault(name, launches, dict(ROUTE_RUNS))
+    if err:
+        bad.append(err)
     graphs, graph_err = graph_counts(ctx, spans["chain_replay_code"])
     own = {k: {n: v for n, v in st.items() if n != "set"}
            for k, st in ctx.pipeline.program_stats().items()}
@@ -1826,11 +2172,16 @@ def mesh_encode(r, clip, mesh):
     with using_mesh(mesh):
         ctx = slice_config(r).new_context()
         torch.cuda.synchronize()
-        kernels.reset_launches()
+        reset_counts()
         t = time.monotonic()
         pkts = encode(ctx, clip, r)
         torch.cuda.synchronize()
-        return pkts, dict(kernels.LAUNCHES), time.monotonic() - t, ctx
+        s = time.monotonic() - t
+    launches = dict(kernels.LAUNCHES)
+    err = filter_launch_fault("mesh", launches, dict(ROUTE_RUNS))
+    if err:
+        fail(err)
+    return pkts, launches, s, ctx
 
 
 def band_graph_check(clip, mesh, dev):
@@ -2028,9 +2379,14 @@ def mesh_phase(r, clip, info):
                  "from the unsharded")
         if label != "mesh":
             continue
-        if launches != {k: MESH_SLOTS * v for k, v in runs[0][2].items()}:
-            fail(f"mesh: launches {launches}, not {MESH_SLOTS} x the "
-                 f"unsharded {runs[0][2]}")
+        # the analysis's kernels run in every slot's band; the filter
+        # stage once a frame, as unsharded
+        expected = {k: (MESH_SLOTS if k in ANALYSIS_KERNELS else 1) * v
+                    for k, v in runs[0][2].items()}
+        if launches != expected:
+            fail(f"mesh: launches {launches}, not {expected}: {MESH_SLOTS} x "
+                 f"the unsharded analysis kernels' {runs[0][2]} and the "
+                 "same filter kernels'")
         if len(bands) != MESH_SLOTS:
             fail(f"mesh: not every slot's bands ran through its runner: "
                  f"{bands}")
@@ -2142,7 +2498,9 @@ def main() -> int:
     phase("clip", t, f"{NFRAMES} frames {WIDTH}x{HEIGHT}")
 
     t = time.monotonic()
-    ksum = kernel_phase(dev, clip[0][0], clip[1][0], int_ops)
+    ksum, routes = kernel_phase(dev, clip, int_ops)
+    ROUTE_LAUNCHES.update(routes)
+    count_routes()
     phase("kernels", t, "kernel == plain at every shape")
 
     pkts, launches, spans, _ = encode_phase(rav1e_tpu_torch, clip, True,
@@ -2161,6 +2519,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         t = time.monotonic()
         cli_report, cli_launches, shown = cli_phase(clip, pkts, tmp)
+        # the CLI's encode is the slice's: the same frames down each route
+        moved = {k: (cli_launches.get(k), launches[k])
+                 for k in FILTER_KERNELS
+                 if cli_launches.get(k) != launches[k]}
+        if moved:
+            fail(f"cli: filter kernel launches (cli, slice) differ: {moved}")
         phase("cli", t, cli_report)
 
     # the slice's packets, which the CLI's IVF holds byte for byte
@@ -2260,6 +2624,7 @@ def main() -> int:
     by_phase = {"slice": launches, "cli": cli_launches,
                 "chain-off": off_launches, "gop": gop_launches,
                 "mesh": mesh_launches, "reference": ref_launches}
+    # the filter kernels' counts each phase checked against its routes
     moved = {k: (v["satd8"], v["grid_search"]) for k, v in by_phase.items()
              if (v["satd8"], v["grid_search"]) != LAUNCHES_BY_PHASE[k]}
     if moved:
@@ -2279,14 +2644,20 @@ def main() -> int:
         fail(f"modules of rav1e_tpu were imported: {ref_mods}")
 
     out = {"kernels": []}
+    cdef_cu = "rav1e_tpu_torch/csrc/cdef.cu"
     for name, src, rep in (
         ("satd8", "rav1e_tpu_torch/csrc/satd8.cu",
          "rav1e_tpu/device/pallas_kernels.py:150"),
         ("grid_search", "rav1e_tpu_torch/csrc/grid_search.cu",
          "rav1e_tpu/device/pallas_kernels.py:229"),
+        ("cdef_dirs", cdef_cu, "rav1e_tpu/device/filters.py:85"),
+        ("cdef_search", cdef_cu, "rav1e_tpu/device/filters.py:383"),
+        ("cdef_apply", cdef_cu, "rav1e_tpu/device/filters.py:441"),
+        ("deblock_edges", "rav1e_tpu_torch/csrc/deblock.cu",
+         "rav1e_tpu/device/dsp.py:568"),
     ):
         s = ksum[name]
-        out["kernels"].append({
+        entry = {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches[name],
             "launches_by_phase": {k: v[name] for k, v in by_phase.items()},
@@ -2294,7 +2665,13 @@ def main() -> int:
             "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
             "library_ms": None, "shape": s["shape"],
-        })
+        }
+        if name in FILTER_KERNELS:
+            entry["launches_per_run"] = {r: ROUTE_LAUNCHES[r][name]
+                                         for r in ROUTE_LAUNCHES}
+            entry["library_note"] = ("no one PyTorch call computes this "
+                                     "function")
+        out["kernels"].append(entry)
     print(info, flush=True)
     print(json.dumps(out), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -118,6 +118,39 @@ def _checked(cmd, returncode: int, output: str) -> str:
     return output
 
 
+class CdefArgs(ctypes.Structure):
+    """The arguments of csrc/cdef.cu's kernels (``R1tCdefArgs``, field for
+    field): the planes' grids and outputs, the per-cell maps, the geometry
+    and the candidate strength lists."""
+
+    _fields_ = [
+        ("rec", ctypes.c_void_p * 3), ("src", ctypes.c_void_p * 3),
+        ("out", ctypes.c_void_p * 3), ("filt", ctypes.c_void_p),
+        ("dirs", ctypes.c_void_p), ("var", ctypes.c_void_p),
+        ("sse", ctypes.c_void_p), ("idx", ctypes.c_void_p),
+        ("ys", ctypes.c_int * 3), ("xs", ctypes.c_int * 3),
+        ("vh", ctypes.c_int * 3), ("vw", ctypes.c_int * 3),
+        *((n, ctypes.c_int) for n in (
+            "nplanes", "nby", "nbx", "sb_rows", "sb_cols", "crop_w", "crop_h",
+            "damping", "bd", "ncand")),
+        ("y_str", ctypes.c_int * 4), ("uv_str", ctypes.c_int * 4),
+    ]
+
+
+_c = ctypes
+# argument types of the library's C functions; each returns an int (a CUDA
+# error code) but r1t_error_string
+SIGNATURES = {
+    "r1t_satd8": [_c.c_void_p, _c.c_void_p, _c.c_longlong, _c.c_int, _c.c_int,
+                  _c.c_void_p],
+    "r1t_grid_search": [*[_c.c_void_p] * 7, *[_c.c_int] * 9, _c.c_void_p],
+    "r1t_cdef_dirs": [_c.POINTER(CdefArgs), _c.c_int, _c.c_void_p],
+    "r1t_cdef_search": [_c.POINTER(CdefArgs), _c.c_int, _c.c_void_p],
+    "r1t_cdef_apply": [_c.POINTER(CdefArgs), _c.c_int, _c.c_void_p],
+    "r1t_deblock_edges": [*[_c.c_void_p] * 4, *[_c.c_int] * 7, _c.c_void_p],
+}
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     global _lib
@@ -126,18 +159,13 @@ def lib() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        c = ctypes
-        so = c.CDLL(str(build()))
-        so.r1t_satd8.argtypes = [
-            c.c_void_p, c.c_void_p, c.c_longlong, c.c_int, c.c_int, c.c_void_p,
-        ]
-        so.r1t_satd8.restype = c.c_int
-        so.r1t_grid_search.argtypes = [
-            *[c.c_void_p] * 7, *[c.c_int] * 9, c.c_void_p,
-        ]
-        so.r1t_grid_search.restype = c.c_int
-        so.r1t_error_string.argtypes = [c.c_int]
-        so.r1t_error_string.restype = c.c_char_p
+        so = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(so, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        so.r1t_error_string.argtypes = [ctypes.c_int]
+        so.r1t_error_string.restype = ctypes.c_char_p
         _lib = so
     return _lib
 

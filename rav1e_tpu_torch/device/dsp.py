@@ -10,6 +10,9 @@ host oracles (``ops/mc.py``, ``quantize.py``, ``ops/transforms.py``,
 one set of tensor operations; per-block variation (MV, subpel phase,
 reference, quantizer) is handled by gathers, never by control flow.
 
+A deblock pass (:func:`deblock_pass_device`) runs ``csrc/deblock.cu``'s
+``deblock_edges`` on a card and :func:`deblock_pass_plain` on the CPU.
+
 Left out: the reference's one-hot matrix-product gathers
 (``gather_rows_onehot``, ``_cols_window``, ``_on_tpu``), which exist only
 because its device serialises indexed loads; windows here are gathered by
@@ -21,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from rav1e_tpu_torch.device import _build, kernels
 from rav1e_tpu_torch.device.constants import device_cache
 from rav1e_tpu_torch.ops.mc import SUBPEL_FILTERS
 from rav1e_tpu_torch.ops.transforms import (
@@ -447,8 +451,62 @@ def deblock_taps14(c, level, bd: int, fs):
     return res
 
 
+def check_deblock_inputs(rec, fsize_grid, level, bd: int) -> None:
+    """Raise unless the arguments are what csrc/deblock.cu reads, on any
+    device: int32 contiguous planes, a plane padded by 8 around its
+    (4*rows_p, 4*cols_p) cells, and the level an int or a 0-d int32 tensor
+    beside them."""
+    kernels._check_tensors("deblock_edges", rec, fsize_grid)
+    if bd not in (8, 10, 12):
+        raise ValueError(f"deblock_edges: bit depth {bd}")
+    if rec.dim() != 2 or fsize_grid.dim() != 2:
+        raise ValueError("deblock_edges: expects a 2-D plane and grid")
+    rows_p, cols_p = fsize_grid.shape
+    if rec.shape[0] < 4 * rows_p + 16 or rec.shape[1] < 4 * cols_p + 16:
+        raise ValueError(f"deblock_edges: plane {tuple(rec.shape)} is not "
+                         f"padded by 8 around a {rows_p}x{cols_p} cell grid")
+    if isinstance(level, torch.Tensor):
+        kernels._check_tensors("deblock_edges", rec, level)
+        if level.dim() != 0:
+            raise ValueError("deblock_edges: the level must be 0-d")
+
+
 def deblock_pass_device(rec, fsize_grid, level, bd: int, vertical: bool):
-    """One deblock pass over a plane.
+    """One deblock pass over a plane: :func:`deblock_pass_plain` for a CPU
+    tensor, csrc/deblock.cu's ``deblock_edges`` for a CUDA one.
+
+    rec: (Hp, Wp) int32 plane padded by 8 on each side.  fsize_grid:
+    (rows_p, cols_p) int32 filter sizes per 4x4 cell edge (0 = skip), as
+    computed by ops/deblock._plane_edge_decisions.  level: an int or a 0-d
+    int32 tensor (read by the kernel on the card, so a replayed graph takes
+    each frame's level).  Returns the filtered padded plane as a new
+    tensor."""
+    if rec.device.type == "cpu":
+        return deblock_pass_plain(rec, fsize_grid, level, bd, vertical)
+    kernels._require_cuda("deblock_edges", rec.device)
+    check_deblock_inputs(rec, fsize_grid, level, bd)
+    out = torch.empty_like(rec)
+    out.copy_(rec)
+    rows_p, cols_p = fsize_grid.shape
+    if rows_p * cols_p == 0:
+        return out
+    tensor_level = isinstance(level, torch.Tensor)
+    dev = rec.device
+    with torch.cuda.device(dev):
+        code = _build.lib().r1t_deblock_edges(
+            rec.data_ptr(), out.data_ptr(), fsize_grid.data_ptr(),
+            level.data_ptr() if tensor_level else None,
+            0 if tensor_level else int(level), rec.shape[1], rows_p, cols_p,
+            bd, int(vertical), dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, "deblock_edges")
+    kernels._count("deblock_edges")
+    return out
+
+
+def deblock_pass_plain(rec, fsize_grid, level, bd: int, vertical: bool):
+    """One deblock pass over a plane, in PyTorch: the plain version of
+    csrc/deblock.cu (:func:`deblock_pass_device`).
 
     rec: (Hp, Wp) int32 plane padded by >= 8 on each side (pad static, Hp/Wp
     multiples of 4).  fsize_grid: (rows_p, cols_p) int32 filter sizes per

@@ -1,5 +1,5 @@
 """The two hand-written kernels of the analysis, their wrappers and their
-plain PyTorch versions.
+plain PyTorch versions, and the launch counts of every kernel of the port.
 
 Counterpart of ``rav1e_tpu/device/pallas_kernels.py``:
 
@@ -11,6 +11,11 @@ Counterpart of ``rav1e_tpu/device/pallas_kernels.py``:
   ``_sad_kernel_factory`` as ``rav1e_tpu/device/me.py`` ``_grid_search``
   uses it).  :func:`sad_grid_plain` is the counterpart of the TPU kernel
   alone.
+
+The filter stage's kernels have their wrappers beside their plain versions:
+``cdef_dirs``, ``cdef_search`` and ``cdef_apply`` (``csrc/cdef.cu``) in
+``device/filters.py``, ``deblock_edges`` (``csrc/deblock.cu``) as
+``device/dsp.py`` ``deblock_pass_device``.
 
 A wrapper dispatches on the device of the tensor it is given: a CPU tensor
 takes the plain version, a CUDA tensor launches the kernel or raises.  A
@@ -35,7 +40,8 @@ from rav1e_tpu_torch.device.constants import ME_BLOCK, device_cache, on as _tabl
 
 # kernel launches since the last reset_launches(), counted under a lock:
 # GOP-parallel workers launch from several threads
-LAUNCHES = {"satd8": 0, "grid_search": 0}
+LAUNCHES = {"satd8": 0, "grid_search": 0, "cdef_dirs": 0, "cdef_search": 0,
+            "cdef_apply": 0, "deblock_edges": 0}
 _launch_lock = threading.Lock()
 
 SATD_SIZES = (8, 16, 32, 64)  # block sides csrc/satd8.cu takes

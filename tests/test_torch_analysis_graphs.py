@@ -132,12 +132,13 @@ def test_launches_inside_a_capture_count_at_each_replay():
         kernels._count("satd8")
         kernels._count("grid_search")
         kernels._count("satd8")
-    assert tally == {"satd8": 2, "grid_search": 1}
-    assert kernels.LAUNCHES == {"satd8": 0, "grid_search": 0}
+    zero = dict.fromkeys(kernels.LAUNCHES, 0)
+    assert tally == {**zero, "satd8": 2, "grid_search": 1}
+    assert kernels.LAUNCHES == zero
     kernels._count("satd8")
     for _ in range(3):
         kernels.add_launches(tally)
-    assert kernels.LAUNCHES == {"satd8": 7, "grid_search": 3}
+    assert kernels.LAUNCHES == {**zero, "satd8": 7, "grid_search": 3}
     kernels.reset_launches()
 
 

@@ -323,6 +323,8 @@ def test_deblock_pass(bd, pli, dec, vertical):
                                   torch.tensor(level, dtype=torch.int32), bd,
                                   vertical)
     _eq(got, want)
+    # the plain version of csrc/deblock.cu, which a CPU tensor takes
+    _eq(dsp.deblock_pass_plain(src, _t(sizes), level, bd, vertical), want)
     _eq(src, plane, "the input plane was written")
     assert not np.array_equal(np.asarray(want), plane)
 

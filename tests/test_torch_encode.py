@@ -197,6 +197,7 @@ def _port_files():
                ROOT / "tools" / "gop_channel_profile.py",
                ROOT / "tools" / "mesh_profile.py", ROOT / "bench_torch.py",
                ROOT / "tools" / "chain_graphs_bench.py",
+               ROOT / "tools" / "filter_stage_bench.py",
                ROOT / "reference_cells.py",
                ROOT / "tests" / "test_torch_reference_packets.py",
                ROOT / "tests" / "test_torch_native_tile.py",
@@ -204,6 +205,7 @@ def _port_files():
                ROOT / "tests" / "test_torch_analysis_graphs.py",
                ROOT / "tests" / "test_torch_program_store.py",
                ROOT / "tests" / "test_torch_mesh_graphs.py",
+               ROOT / "tests" / "test_torch_filter_kernels.py",
                ROOT / "tests" / "host_reads.py"])
 
 

@@ -12,6 +12,7 @@ import rav1e_tpu.ops.cdef as cdef_mod
 import rav1e_tpu_torch
 from rav1e_tpu.config import ChromaSampling
 from rav1e_tpu.frame import Frame
+from rav1e_tpu_torch.device import kernels
 from torch_threads import one_torch_cpu_thread  # noqa: F401
 
 
@@ -86,12 +87,16 @@ def test_cdef_device_frame_matches_reference(bd, cs):
                                     damping, base_y, base_uv)
 
     port_rec = _to_port(rec, W, H, bd, cs)
+    kernels.reset_launches()
     ys_t, us_t, idx_t, applied = cdef_device_frame(
         port_rec, _to_port(src, W, H, bd, cs), blocks, bd,
         rav1e_tpu_torch.ChromaSampling(int(cs)), W, H, damping, base_y,
         base_uv, device="cpu",
     )
     assert applied
+    # the stage's plain versions (filters.cdef_dirs_plain, cdef_search_plain,
+    # cdef_apply_plain) ran: a CPU tensor launches no kernel
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
     assert ys_t == ys_h == ys_j and us_t == us_h == us_j
     assert idx_t.dtype == np.int32
     np.testing.assert_array_equal(idx_t, idx_h)
@@ -133,6 +138,13 @@ def test_cdef_cells_match_reference(bd):
     want_dir, want_var = map(np.asarray, ref.cdef_dirs_cells(
         jnp.asarray(cells), bd))
     got_dir, got_var = port.cdef_dirs_cells(torch.from_numpy(cells), bd)
+    np.testing.assert_array_equal(got_dir.numpy(), want_dir)
+    np.testing.assert_array_equal(got_var.numpy(), want_var)
+    # the plain version of csrc/cdef.cu's cdef_dirs, on the cells' plane
+    # with its 2px ring
+    plane = np.pad(cells.transpose(0, 2, 1, 3).reshape(nby * 8, nbx * 8), 2)
+    got_dir, got_var = port.cdef_dirs_plain(torch.from_numpy(plane), nby,
+                                            nbx, bd)
     np.testing.assert_array_equal(got_dir.numpy(), want_dir)
     np.testing.assert_array_equal(got_var.numpy(), want_var)
 

@@ -116,7 +116,7 @@ def test_cpu_calls_launch_no_kernel():
                         torch.zeros((60, 60), dtype=torch.int32),
                         z[:, 0].contiguous(), z[:, 1].contiguous(), [z, z],
                         16, 2, 1, 22, 18)
-    assert kernels.LAUNCHES == {"satd8": 0, "grid_search": 0}
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
 
 
 def test_wrappers_raise_on_a_device_without_kernel():
@@ -237,7 +237,8 @@ def test_launch_counts_are_exact_across_threads():
             kernels._count("grid_search")
 
     _run_threads(launch_many)
-    assert kernels.LAUNCHES == {"satd8": 32000, "grid_search": 32000}
+    assert kernels.LAUNCHES == {**dict.fromkeys(kernels.LAUNCHES, 0),
+                                "satd8": 32000, "grid_search": 32000}
     kernels.reset_launches()
 
 
@@ -253,8 +254,8 @@ def test_kernel_library_builds_once_across_threads(monkeypatch, tmp_path):
 
     class FakeLib:
         def __init__(self, path):
-            self.r1t_satd8 = self.r1t_grid_search = self.r1t_error_string = (
-                type("Fn", (), {})())
+            for name in (*_build.SIGNATURES, "r1t_error_string"):
+                setattr(self, name, type("Fn", (), {})())
 
     monkeypatch.setattr(_build, "_lib", None)
     monkeypatch.setattr(_build, "build", slow_build)
