@@ -212,6 +212,21 @@ LAUNCHES_BY_PHASE = {"slice": (94, 120), "cli": (94, 120),
 
 
 ANALYSIS_KERNELS = ("satd8", "grid_search")
+# the first pass's kernels (csrc/firstpass.cu): every encode on the card
+# runs the scene detector's two; the lookahead's two run for each pyramid
+# group with temporal RDO
+FIRSTPASS_KERNELS = ("fp_downsample", "fp_scene_sums", "fp_la_intra",
+                     "fp_la_motion")
+# integer operations, from the plain versions' formulas: a downsampled
+# sample (3 adds, a shift); a compared sample a shift and plane (sub, abs,
+# add) and a gradient sample (2 x sub, abs, add); an intra cell sample (row
+# and column sums, three scaled residuals: multiply, sub, abs, add); a
+# candidate or inter-cost sample (sub, abs, add)
+FP_DOWNSAMPLE_OPS = 4
+FP_SHIFT_OPS = 3
+FP_GRAD_OPS = 6
+FP_INTRA_OPS_PER_SAMPLE = 2 + 3 * 4
+FP_SAD_OPS = 3
 # runs of the two routes through the filter kernels since the last
 # reset_counts(): a chain frame (graphs.ChainPrograms.run: stage 4 once)
 # and a standalone CDEF stage (graphs.CdefPrograms.run); and each route's
@@ -575,6 +590,64 @@ def filter_cases(clip, dev):
     return cases, dict(per_chain), per_cdef
 
 
+def firstpass_cases(clip, dev):
+    """The first pass's kernel calls of the kernel phase, as (label, kernel,
+    wrapper, plain version, args, (bytes, integer operations)): a 1080p
+    frame of the clip at 8 bits and widened to 10, as scene detection and
+    a lookahead group call them, and a flat plane, where every candidate of
+    the motion search ties."""
+    import torch
+
+    from rav1e_tpu_torch.device import firstpass as fp
+
+    lumas = [torch.from_numpy(np.ascontiguousarray(clip[i][0])).to(dev)
+             for i in range(3)]
+    ten = [y.to(torch.int16) * 4 + (y & 3).to(torch.int16) for y in lumas]
+    h, w = lumas[0].shape
+    ds8 = [fp.downsample(y) for y in lumas]
+    ds10 = [fp.downsample(y) for y in ten]
+    h2, w2 = ds8[0].shape
+    r = fp.shift_radius(h2, w2)
+    ns = (2 * r + 1) ** 2
+    flat = torch.full_like(lumas[0], 97)
+    cases = []
+    for bits, y in ((8, lumas[2]), (10, ten[2])):
+        cases.append((f"1080p {bits}-bit", "fp_downsample", fp.downsample,
+                      fp.downsample_plain, (y,),
+                      (h * w * y.element_size() + h2 * w2 * 2,
+                       FP_DOWNSAMPLE_OPS * h2 * w2)))
+    for label, ds, prev2, grads in (
+            ("960x540 r3 2 planes, gradients", ds8, True, True),
+            ("960x540 r3 1 plane", ds8, False, False),
+            ("10-bit 960x540 r3 2 planes", ds10, True, True)):
+        nref = 2 if prev2 else 1
+        cases.append((label, "fp_scene_sums", fp.scene_sums,
+                      fp.scene_sums_plain,
+                      (ds[2], ds[1], ds[0] if prev2 else None, r, grads),
+                      ((nref + 1) * h2 * w2 * 2 + 8 * (2 + 2 * ns),
+                       FP_SHIFT_OPS * ns * nref * h2 * w2
+                       + (FP_GRAD_OPS * h2 * w2 if grads else 0))))
+    cells = (h // 8) * (w // 8)
+    for bits, y in ((8, lumas[0]), (10, ten[0])):
+        cases.append((f"1080p {bits}-bit", "fp_la_intra", fp.la_intra,
+                      fp.la_intra_plain, (y, bits),
+                      (h * w * y.element_size() + 8 * cells,
+                       FP_INTRA_OPS_PER_SAMPLE * 64 * cells)))
+    (mby, mbx), (nby, nbx) = fp.motion_shapes(h, w)
+    for label, src, ref, bits in (("1080p 8-bit", lumas[1], lumas[0], 8),
+                                  ("1080p 10-bit", ten[1], ten[0], 10),
+                                  ("1080p flat", flat, flat, 8)):
+        stats = {}
+        fp.la_motion_plain(src, ref, bits, stats=stats)
+        cases.append((label, "fp_la_motion", fp.la_motion,
+                      fp.la_motion_plain, (src, ref, bits),
+                      (2 * h * w * src.element_size() + 8 * mby * mbx
+                       + 8 * nby * nbx,
+                       FP_SAD_OPS * 256 * stats["sads"]
+                       + FP_SAD_OPS * 64 * nby * nbx)))
+    return cases
+
+
 def _same(got, want):
     """Max abs difference of two outputs (tensors or sequences of them),
     inf where their shapes or dtypes differ."""
@@ -695,6 +768,18 @@ def kernel_phase(dev, clip, ops_per_s):
         pms = cuda_ms(lambda: plain(*a), 5)
         rows.append((name, label, err, runs, pms,
                      *bound(*filter_bound(name, a, got), ops_per_s)))
+    for label, name, fn, plain, a, (nbytes, ops) in firstpass_cases(clip,
+                                                                    dev):
+        got = fn(*a)
+        want = plain(*a)
+        torch.cuda.synchronize()
+        err = _same(got, want)
+        if err != 0:
+            fail(f"{name} {label}: kernel != plain (max abs err {err})")
+        runs = [cuda_ms(lambda: fn(*a), 20) for _ in range(KERNEL_RUNS)]
+        pms = cuda_ms(lambda: plain(*a), 5)
+        rows.append((name, label, err, runs, pms,
+                     *bound(nbytes, ops, ops_per_s)))
     summary = {}
     for i, (name, label, err, runs, pms, bms, by) in enumerate(rows):
         ms = float(np.median(runs))
@@ -709,7 +794,11 @@ def kernel_phase(dev, clip, ops_per_s):
     for name, label in (("satd8", "subpel 8160x49x16x16"),
                         ("grid_search", grid_cases[3][0]),
                         *((k, "1080p chain") for k in FILTER_KERNELS[:3]),
-                        ("deblock_edges", "1080p chain Y vertical")):
+                        ("deblock_edges", "1080p chain Y vertical"),
+                        ("fp_downsample", "1080p 8-bit"),
+                        ("fp_scene_sums", "960x540 r3 2 planes, gradients"),
+                        ("fp_la_intra", "1080p 8-bit"),
+                        ("fp_la_motion", "1080p 8-bit")):
         r = next(r for r in rows if r[0] == name and r[1] == label)
         summary[name].update(ms=r[3], plain_ms=r[4], bound_ms=r[5],
                              bound_by=r[6], shape=label)
@@ -890,8 +979,11 @@ def encode_phase(rav1e_tpu_torch, clip, chain, label):
     # the chain-on path runs every kernel; the chain-off path no deblock
     # pass (the host deblocks) and, besides the encode's, an eager CDEF
     # stage per checked replay
-    path = ((*ANALYSIS_KERNELS, *FILTER_KERNELS) if chain
-            else (*ANALYSIS_KERNELS, *FILTER_KERNELS[:3]))
+    # and the first pass's scene kernels every frame, its lookahead kernels
+    # for each pyramid group (none in the chain-off tier's 4 frames)
+    path = ((*ANALYSIS_KERNELS, *FILTER_KERNELS, *FIRSTPASS_KERNELS) if chain
+            else (*ANALYSIS_KERNELS, *FILTER_KERNELS[:3],
+                  *FIRSTPASS_KERNELS[:2]))
     for name in path:
         if launches[name] <= 0:
             fail(f"{label}: kernel {name} was not launched by the encode")
@@ -2655,6 +2747,8 @@ def main() -> int:
         ("cdef_apply", cdef_cu, "rav1e_tpu/device/filters.py:441"),
         ("deblock_edges", "rav1e_tpu_torch/csrc/deblock.cu",
          "rav1e_tpu/device/dsp.py:568"),
+        *((k, "rav1e_tpu_torch/csrc/firstpass.cu", None)
+          for k in FIRSTPASS_KERNELS),
     ):
         s = ksum[name]
         entry = {
@@ -2671,6 +2765,9 @@ def main() -> int:
                                          for r in ROUTE_LAUNCHES}
             entry["library_note"] = ("no one PyTorch call computes this "
                                      "function")
+        if rep is None:
+            entry["library_note"] = ("replaces no TPU kernel: the JAX "
+                                     "package runs this work on the host")
         out["kernels"].append(entry)
     print(info, flush=True)
     print(json.dumps(out), flush=True)

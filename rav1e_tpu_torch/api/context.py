@@ -129,7 +129,7 @@ class ContextInner:
         self.frames_processed = 0
         self.limit: Optional[int] = None
         self.keyframes = {0}
-        self._last_luma_ds = None  # 8x-downsampled luma for scene detection
+        self._last_luma_ds = None  # 2x-downsampled luma for scene detection
         self.rc_state = None
         self.packet_count = 0
         self.inter_cfg = InterConfig(config.enc.low_latency)
@@ -138,27 +138,46 @@ class ContextInner:
         self.gop_input_start = 0
         self._p_slot_cycle = 0       # slot cycle for partial-group P frames
         self._p_prev_slot = 0
+        # on a card, scene detection and the lookahead read each input luma
+        # there (device/firstpass.py); on the CPU, None: the host functions
+        from rav1e_tpu_torch.device.firstpass import for_context
+
+        self._firstpass = for_context(config, self.inter_cfg.reorder)
 
     def send_frame(self, frame: Frame, params: Optional[FrameParameters]) -> None:
         with span("frame_intake", frame=self.next_frameno):
             frame.pad()
             self.frame_q[self.next_frameno] = frame
             self.frame_params[self.next_frameno] = params
+            fp = self._firstpass
+            luma = (None if fp is None else
+                    fp.upload(self.next_frameno, frame.planes[0].as_array()))
             with span("scene_detect"):
-                self._detect_keyframe(self.next_frameno, frame, params)
+                self._detect_keyframe(self.next_frameno, frame, params, luma)
             self.next_frameno += 1
 
-    def _detect_keyframe(self, frameno: int, frame: Frame, params) -> None:
+    def _detect_keyframe(self, frameno: int, frame: Frame, params,
+                         luma=None) -> None:
         """Keyframe placement: forced overrides, keyint limits, and fast
         pixel-difference scene detection (capability counterpart of the
-        reference's av-scenechange Fast mode, api/internal.rs:276-300)."""
+        reference's av-scenechange Fast mode, api/internal.rs:276-300).
+        ``luma``: the frame's luma on the card, where the first pass
+        downsamples and compares it (:meth:`_scene_cut_card`)."""
         e = self.config.enc
+        fp = self._firstpass
         if params is not None and params.frame_type_override == "key":
             self.keyframes.add(frameno)
-            self._last_luma_ds = self._downsample_luma(frame)
+            self._last_luma_ds = (self._downsample_luma(frame) if fp is None
+                                  else fp.scene(luma)[0])
             return
         last_kf = max(k for k in self.keyframes if k <= frameno) if frameno else 0
         distance = frameno - last_kf
+        if fp is not None:
+            cur, scene_cut = self._scene_cut_card(frameno, luma)
+            self._prev2_luma_ds = self._last_luma_ds
+            self._last_luma_ds = cur
+            self._place_keyframe(frameno, distance, scene_cut)
+            return
         cur = self._downsample_luma(frame)
         scene_cut = False
         from rav1e_tpu_torch.config import SceneDetectionSpeed
@@ -232,11 +251,54 @@ class ContextInner:
                         self.keyframes.discard(flash)
         self._prev2_luma_ds = self._last_luma_ds
         self._last_luma_ds = cur
+        self._place_keyframe(frameno, distance, scene_cut)
+
+    def _place_keyframe(self, frameno: int, distance: int,
+                        scene_cut: bool) -> None:
+        e = self.config.enc
         if distance >= e.max_key_frame_interval:
             self.keyframes.add(frameno)
         elif scene_cut and distance >= e.min_key_frame_interval:
             self.keyframes.add(frameno)
             self._last_scene_cut = frameno
+
+    def _scene_cut_card(self, frameno: int, luma):
+        """(the downsampled plane, the host test's decision) from the first
+        pass's integer sums of the downsampled planes on the card:
+        ``shifted_mad``'s result is only ever compared with its threshold,
+        and falls to it exactly when the least mean over all shifts does,
+        so the least of the sums over their counts decides alike; the flash
+        check (and its retraction of the flash's keyframe) is the host's."""
+        from rav1e_tpu_torch.config import SceneDetectionSpeed
+
+        e = self.config.enc
+        fp = self._firstpass
+        mode = e.speed_settings.scene_detection_mode
+        prev = self._last_luma_ds
+        if (mode == SceneDetectionSpeed.NoDetection or prev is None
+                or frameno == 0):
+            return fp.scene(luma)[0], False
+        prev2 = getattr(self, "_prev2_luma_ds", None)
+        standard = mode == SceneDetectionSpeed.Standard
+        cur, sums = fp.scene(luma, prev, prev2, standard)
+        gx, gy, mad, mad2 = fp.scene_values(sums)
+        scale = 1 << (e.bit_depth - 8)
+        if standard:
+            intra_cost = max((gx + gy) * 0.5, 1e-3)
+            thr = max(0.9 * intra_cost, 6.0 * scale)
+        else:
+            thr = 14.0 * scale
+        scene_cut = mad > thr
+        if scene_cut and prev2 is not None and mad2 <= 7.0 * scale:
+            scene_cut = False
+            flash = frameno - 1
+            if (
+                flash == getattr(self, "_last_scene_cut", None)
+                and flash in self.keyframes
+                and flash >= self.plan_next_input
+            ):
+                self.keyframes.discard(flash)
+        return cur, scene_cut
 
     @staticmethod
     def _downsample_luma(frame: Frame):
@@ -275,6 +337,7 @@ class ContextInner:
                 self._p_prev_slot = 0
                 self.plan.append(PlannedFrame("key", s, order_hint=0, slot=0))
                 self.plan_next_input = s + 1
+                self._release_planned()
                 return
 
             ic = self.inter_cfg
@@ -294,6 +357,7 @@ class ContextInner:
                 self._lookahead_group(group)
                 self.plan.extend(group)
                 self.plan_next_input = s + ic.group_input_len
+                self._release_planned()
                 return
 
             # low-latency / partial-group P frame
@@ -319,6 +383,12 @@ class ContextInner:
                 p.switch = True
             self.plan.append(p)
             self.plan_next_input = s + 1
+            self._release_planned()
+
+    def _release_planned(self) -> None:
+        """A planned frame's luma is read no more on the card."""
+        if self._firstpass is not None:
+            self._firstpass.release(self.plan_next_input)
 
     def _lookahead_group(self, group) -> None:
         """Temporal-RDO lookahead for one pyramid group (capability
@@ -326,16 +396,19 @@ class ContextInner:
         costs for the group's inputs, back-propagate block importance along
         each B frame's backward-anchor motion, and attach the accumulated
         grids to the anchor/mid PlannedFrames.  Skipped when temporal RDO
-        is disabled by the speed preset."""
+        is disabled by the speed preset.  On a card the costs and motion
+        are the first pass's kernels over the lumas uploaded at intake
+        (:meth:`FirstPass.lookahead`), equal to the host functions'; the
+        propagation, a float64 scatter whose order fixes its bits, stays
+        on the host."""
         with span("lookahead"):
-            import numpy as np
-
             from rav1e_tpu_torch.encoder import lookahead as la
 
             e = self.config.enc
             if not getattr(e.speed_settings, "temporal_rdo", True):
                 return
             inters = [g for g in group if g.kind == "inter"]
+            fp = self._firstpass
             frames = {}
             for g in inters:
                 f = self.frame_q.get(g.input_frameno)
@@ -344,13 +417,10 @@ class ContextInner:
                 p = f.planes[0]
                 frames[g.input_frameno] = p.as_array()[: e.height, : e.width]
             bd = e.bit_depth
-            data = {
-                no: la.LookaheadData(la.estimate_intra_costs(y, bd))
-                for no, y in frames.items()
-            }
             # display order, each B propagating to its backward anchor
             order = sorted(inters, key=lambda g: g.input_frameno)
             anchor_no = order[-1].input_frameno
+            pairs = []
             for g in order[:-1]:
                 # backward anchor in input order: the next group frame at a
                 # shallower pyramid level (s,s+2 -> s+1/s+3; s+1 -> s+3)
@@ -358,14 +428,28 @@ class ContextInner:
                 tgt = g.input_frameno + step
                 if tgt not in frames:
                     tgt = anchor_no
-                src_y, ref_y = frames[g.input_frameno], frames[tgt]
-                mvs, _ = la.lookahead_motion(src_y, ref_y, bd)
-                inter = la.inter_costs_8x8(mvs, src_y, ref_y, bd)
-                d = data[g.input_frameno]
-                d.inter, d.mvs = inter, mvs
-                la.propagate_importance(
-                    d.importances, d.intra, inter, mvs, data[tgt].importances
-                )
+                pairs.append((g.input_frameno, tgt))
+            with span("la_costs"):
+                if fp is None:
+                    intra = {no: la.estimate_intra_costs(y, bd)
+                             for no, y in frames.items()}
+                    motion = []
+                    for src, tgt in pairs:
+                        src_y, ref_y = frames[src], frames[tgt]
+                        mvs, _ = la.lookahead_motion(src_y, ref_y, bd)
+                        motion.append(
+                            (mvs, la.inter_costs_8x8(mvs, src_y, ref_y, bd)))
+                else:
+                    intra, motion = fp.lookahead(list(frames), pairs)
+            with span("la_propagate"):
+                data = {no: la.LookaheadData(intra[no]) for no in frames}
+                for (src, tgt), (mvs, inter) in zip(pairs, motion):
+                    d = data[src]
+                    d.inter, d.mvs = inter, mvs
+                    la.propagate_importance(
+                        d.importances, d.intra, inter, mvs,
+                        data[tgt].importances
+                    )
             for g in inters:
                 d = data[g.input_frameno]
                 if d.importances.any():

@@ -148,6 +148,15 @@ SIGNATURES = {
     "r1t_cdef_search": [_c.POINTER(CdefArgs), _c.c_int, _c.c_void_p],
     "r1t_cdef_apply": [_c.POINTER(CdefArgs), _c.c_int, _c.c_void_p],
     "r1t_deblock_edges": [*[_c.c_void_p] * 4, *[_c.c_int] * 7, _c.c_void_p],
+    "r1t_fp_downsample": [*[_c.c_void_p] * 2, *[_c.c_int] * 4, _c.c_void_p],
+    "r1t_fp_scene_sums": [*[_c.c_void_p] * 4, *[_c.c_int] * 5, _c.c_void_p],
+    "r1t_fp_la_intra": [*[_c.c_void_p] * 2, *[_c.c_int] * 5, _c.c_void_p],
+    "r1t_fp_la_motion": [*[_c.c_void_p] * 4, *[_c.c_int] * 5, _c.c_void_p],
+    "r1t_fp_stream_create": [_c.POINTER(_c.c_void_p), _c.c_int],
+    "r1t_fp_upload": [*[_c.c_void_p] * 2, _c.c_longlong, _c.c_int,
+                      _c.c_void_p],
+    "r1t_fp_scene": [*[_c.c_void_p] * 6, *[_c.c_int] * 6, _c.c_void_p],
+    "r1t_fp_sync": [_c.c_void_p],
 }
 
 

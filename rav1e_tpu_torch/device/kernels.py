@@ -15,7 +15,9 @@ Counterpart of ``rav1e_tpu/device/pallas_kernels.py``:
 The filter stage's kernels have their wrappers beside their plain versions:
 ``cdef_dirs``, ``cdef_search`` and ``cdef_apply`` (``csrc/cdef.cu``) in
 ``device/filters.py``, ``deblock_edges`` (``csrc/deblock.cu``) as
-``device/dsp.py`` ``deblock_pass_device``.
+``device/dsp.py`` ``deblock_pass_device``; the first pass's kernels
+(``csrc/firstpass.cu``: ``fp_downsample``, ``fp_scene_sums``,
+``fp_la_intra``, ``fp_la_motion``) in ``device/firstpass.py``.
 
 A wrapper dispatches on the device of the tensor it is given: a CPU tensor
 takes the plain version, a CUDA tensor launches the kernel or raises.  A
@@ -41,7 +43,8 @@ from rav1e_tpu_torch.device.constants import ME_BLOCK, device_cache, on as _tabl
 # kernel launches since the last reset_launches(), counted under a lock:
 # GOP-parallel workers launch from several threads
 LAUNCHES = {"satd8": 0, "grid_search": 0, "cdef_dirs": 0, "cdef_search": 0,
-            "cdef_apply": 0, "deblock_edges": 0}
+            "cdef_apply": 0, "deblock_edges": 0, "fp_downsample": 0,
+            "fp_scene_sums": 0, "fp_la_intra": 0, "fp_la_motion": 0}
 _launch_lock = threading.Lock()
 
 SATD_SIZES = (8, 16, 32, 64)  # block sides csrc/satd8.cu takes
