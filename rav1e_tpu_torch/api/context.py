@@ -13,12 +13,14 @@ scheduler drops in later without API change.
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Optional
 
 import numpy as np
 
 from rav1e_tpu_torch.api.util import EncoderStatus, FrameType, Packet
 from rav1e_tpu_torch.frame import Frame, FrameParameters
+from rav1e_tpu_torch.utils import trace
 from rav1e_tpu_torch.utils.trace import span
 
 # How many upcoming coded frames to hand the pipeline for async device
@@ -38,6 +40,8 @@ class Context:
         self.is_flushing = False
         self.inner = ContextInner(config)
         self.pipeline = FramePipeline(config)
+        # input frameno -> the time its send_frame began, while tracing
+        self._sent_at: Dict[int, float] = {}
 
     # ---- frame ingestion ---------------------------------------------------
 
@@ -68,6 +72,8 @@ class Context:
                 and inner.next_frameno > 0
             ):
                 raise EncoderStatus.EnoughData()
+            if trace.trace_enabled():
+                self._sent_at[inner.next_frameno] = time.monotonic()
             inner.send_frame(frame, params)
 
     # ---- packet retrieval --------------------------------------------------
@@ -79,11 +85,22 @@ class Context:
         ``EncoderStatus.LimitReached`` when flushing completes.
         """
         try:
-            return self.inner.receive_packet(self.pipeline, self.is_flushing)
+            packet = self.inner.receive_packet(self.pipeline, self.is_flushing)
         except EncoderStatus.LimitReached:
             # the stream has ended: the pipeline runs no more
             self.pipeline.release_programs()
             raise
+        if packet.show_frame:
+            sent = self._sent_at.pop(packet.input_frameno, None)
+            if sent is not None:
+                # the frame's time in flight as two zero-length marks, one
+                # right after the other: a span over it would cover the
+                # pipeline's own spans and the time outside them
+                n = packet.input_frameno
+                trace.complete("frame_in_flight_start", sent, sent, frame=n)
+                now = time.monotonic()
+                trace.complete("frame_in_flight_end", now, now, frame=n)
+        return packet
 
     def flush(self) -> None:
         self.send_frame(None)

@@ -388,20 +388,36 @@ class ChainGeom:
         return ((self.gh * self.gw * 3 // 2) // 3 + 1023) & ~1023
 
 
+def edge_leaf_sizes(mi_cols: int, mi_rows: int, pr_min: int,
+                    pr_max: int) -> set:
+    """Leaf sizes (px) below the partition range that the frame's edges
+    force: a block of the range's least size that crosses the mi edge must
+    split, down to 8px.  The walk that splits every block it may (a size
+    map of ``pr_min`` everywhere) reaches every block of that size, so its
+    leaves below ``pr_min`` hold those of any other size map."""
+    nby_a = ((mi_rows + 15) // 16) * 8
+    nbx_a = ((mi_cols + 15) // 16) * 8
+    least = np.full((nby_a, nbx_a), pr_min, dtype=np.int32)
+    eff = effective_size8(least, mi_cols, mi_rows, pr_min, pr_max)
+    inside = eff[: mi_rows // 2, : mi_cols // 2]
+    return {1 << int(sl) for sl in np.unique(inside) if sl < pr_min}
+
+
+@functools.lru_cache(None)
 def geom_for(vis_w, vis_h, mi_cols, mi_rows, bd, tx_split, has_bwd,
              has_bwd2, pr_min, pr_max) -> ChainGeom:
-    """Derive the static bucket/size lists from the partition range."""
+    """Derive the static bucket/size lists: every size of the partition
+    range, 8px wherever an mi edge is ragged (the reference's rule), and
+    each smaller size that the frame's edges force (:func:`edge_leaf_sizes`:
+    the reference's rule alone misses 16px when the range starts at 32, and
+    the plan's 16x16 edge leaves would have no bucket)."""
     sb_cols = (mi_cols + 15) // 16
     sb_rows = (mi_rows + 15) // 16
-    # ragged mi edges force 8px blocks regardless of pr_min
     ragged = (mi_cols % 16 != 0) or (mi_rows % 16 != 0)
-    sizes = [s for s in (8, 16, 32, 64)
-             if (pr_min <= (s.bit_length() - 1) <= pr_max)
-             or (s == 8 and ragged)]
-    # must_split chains force every size between 8 and the smallest wanted
-    smin = min(sizes)
-    if ragged:
-        sizes = sorted(set(sizes) | {s for s in (8, 16, 32) if s < smin})
+    sizes = sorted(
+        {s for s in (8, 16, 32, 64)
+         if (pr_min <= s.bit_length() - 1 <= pr_max) or (s == 8 and ragged)}
+        | edge_leaf_sizes(mi_cols, mi_rows, pr_min, pr_max))
     buckets = []
     for s in sorted(sizes):
         t = tx_for_block(s, tx_split)

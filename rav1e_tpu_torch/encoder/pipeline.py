@@ -3612,6 +3612,11 @@ class FramePipeline:
             src_luma = frame.planes[0].as_array()[: enc.height, : enc.width].copy()
             chain_refs = self._chain_pending_refs
             self._chain_pending_refs = None
+            if fi.is_inter_frame:
+                # one counter for each inter frame, by the path that coded it
+                with span("inter_chain" if chain_refs is not None
+                          else "inter_host", frame=input_frameno):
+                    pass
             for i in range(8):
                 if (refresh >> i) & 1:
                     self.rec_buffer[i] = rec

@@ -11,8 +11,14 @@ chrome://tracing events and written as JSON.
   up with the spans through one span of its own.
 - **Format.** Every event is an ``"X"`` (complete) event with a ``dur``,
   whatever it records. A counter is a zero-length span
-  (``chain_predispatch_hit``, ``chain_overflow``, ``chain_diverged``), so a
-  reader takes each event's ``name``, ``ts`` and ``dur`` and nothing else.
+  (``chain_predispatch_hit``, ``chain_overflow``, ``chain_diverged``,
+  ``inter_chain``, ``inter_host``), so a reader takes each event's
+  ``name``, ``ts`` and ``dur`` and nothing else.
+- **Times past.** :func:`complete` records a span or counter whose start
+  was taken earlier: ``receive_packet`` marks each shown frame's time in
+  flight as the counters ``frame_in_flight_start`` (at its ``send_frame``)
+  and ``frame_in_flight_end``, recorded one right after the other. They
+  have no profiler range.
 - **Python's garbage collector.** While tracing is on, each collection is
   a ``py_gc`` span from ``gc.callbacks``' start to its stop, with the
   collection's ``generation`` and ``collected`` count as args.
@@ -165,6 +171,14 @@ def span(name: str, **args):
     if not _enabled:
         return _OFF
     return _Span(name, args)
+
+
+def complete(name: str, start: float, end: float, **args) -> None:
+    """Record the span ``name`` from ``start`` to ``end`` (both on
+    ``time.monotonic``, both past; equal for a counter) while tracing is
+    on."""
+    if _enabled:
+        _record(name, start, end, args)
 
 
 def stage_summary() -> Dict[str, dict]:

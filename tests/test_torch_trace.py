@@ -122,6 +122,32 @@ def test_every_event_is_a_complete_event(encoded):
         assert {"name", "ts", "dur", "pid", "tid", "args"} <= set(e), e
 
 
+def test_frame_in_flight_and_the_inter_counters(encoded):
+    """A shown frame's time in flight as two zero-length marks recorded one
+    right after the other, from before its intake to after it; one
+    inter_chain counter a coded inter frame, all of them the chain's at
+    this size."""
+    _path, events, pkts = encoded
+
+    def by_frame(name):
+        return {e["args"]["frame"]: e for e in events if e["name"] == name}
+
+    start, end = (by_frame("frame_in_flight_start"),
+                  by_frame("frame_in_flight_end"))
+    intake = by_frame("frame_intake")
+    shown = sorted(p.input_frameno for p in pkts if p.show_frame)
+    assert sorted(start) == sorted(end) == shown
+    for f in shown:
+        assert start[f]["dur"] == end[f]["dur"] == 0
+        assert start[f]["ts"] <= intake[f]["ts"]
+        assert end[f]["ts"] >= intake[f]["ts"] + intake[f]["dur"]
+        assert events.index(end[f]) - events.index(start[f]) == 1
+    inter = {p.input_frameno for p in pkts
+             if p.frame_type == r.FrameType.INTER}
+    assert sorted(by_frame("inter_chain")) == sorted(inter)
+    assert not by_frame("inter_host")
+
+
 def test_spans_nest_inside_the_frame_that_opened_them(encoded):
     """scene_detect inside frame_intake, lookahead inside plan."""
     _path, events, _pkts = encoded
